@@ -1,5 +1,5 @@
 """End-to-end burst stacking example — the reference workflow
-(ref examples/main.rs:27-160), TPU-native:
+(ref examples/main.rs:27-160), on an accelerator:
 
 1. scan a directory for jpg/jpeg/tif/png frames;
 2. score all four sharpness metrics for every frame in ONE batched
@@ -8,7 +8,7 @@
    reverse so the sharpest frame becomes the reference (frame 0);
 4. run the selected pipeline variants (keypoint full/scaled, ECC
    full/scaled — all four by default) with phase timings;
-5. save the stacked images as PNGs (no GUI on TPU hosts).
+5. save the stacked images as PNGs (no GUI on accelerator hosts).
 
 Usage:  python examples/stack_burst.py <image_dir> [--out outdir]
         [--method keypoint|ecc|all] [--motion-type homography|...]
@@ -94,14 +94,13 @@ def main():
                     "resolution only, OpenCV semantics; N > 0 warm-starts "
                     "the solve from 2^N..2x downscaled octaves — same "
                     "converged warp, fewer full-resolution iterations)")
-    ap.add_argument("--ecc-solver", choices=("forward", "lazy", "ic"),
+    ap.add_argument("--ecc-solver", choices=("forward", "lazy"),
                     default="forward",
                     help="ECC formulation: 'forward' = OpenCV's "
                     "forward-additive (bit-faithful); 'lazy' = forward "
                     "with the Hessian computed once per frame and "
-                    "carried (same optimum, cheaper TPU iterations); "
-                    "'ic' = inverse-compositional (cheapest sweeps, "
-                    "biased on aliasing-prone content)")
+                    "carried (same optimum, cheaper fused-kernel "
+                    "iterations on a GPU)")
     ap.add_argument("--stacking", choices=("mean", "sigma_clip"),
                     default="mean",
                     help="stack estimator: 'mean' = reference semantics; "
@@ -136,11 +135,11 @@ def main():
                     "lens dirt, watermarks, dead sensor regions; "
                     "stacking still averages every pixel")
     ap.add_argument("--mesh", metavar="AUTO|N", default=None,
-                    help="shard the burst over multiple TPU chips via "
+                    help="shard the burst over multiple devices via "
                     "the public mesh= argument: 'auto' uses every "
                     "visible device, an integer N builds a data-axis "
                     "mesh over the first N devices (the reference's "
-                    "Rayon fan-out, src/lib.rs:746, as SPMD over ICI)")
+                    "Rayon fan-out, src/lib.rs:746, as SPMD)")
     args = ap.parse_args()
     if args.stream > 0 and args.output_scale != 1:
         ap.error("--output-scale is not available with --stream (the "

@@ -1,4 +1,4 @@
-"""libstacker_tpu — a TPU-native image alignment and stacking framework.
+"""libstacker_tpu — an image alignment and stacking framework in JAX.
 
 A ground-up JAX/XLA/Pallas rebuild of the capabilities of
 eadf/libstacker.rs (see SURVEY.md): burst frames live as one batched

@@ -3,10 +3,10 @@
 Counterpart of the reference's ``ecc_match`` dispatcher and its two
 pipelines (``src/lib.rs:702-717``, ``ecc_match_no_scaling``
 src/lib.rs:719-847, ``ecc_match_scaling_down`` src/lib.rs:849-1028),
-redesigned TPU-first:
+redesigned for an accelerator:
 
 - frames are decoded on host into one ``[N,H,W,3] uint8`` tensor and
-  shipped to HBM once;
+  shipped to device memory once;
 - grayscale conversion, optional INTER_AREA scale-down, batched ECC
   solve, full-res warp and stack accumulation all run as jitted device
   programs over the whole burst (the Rayon fold/reduce at
@@ -41,7 +41,7 @@ def _solver_mode(params) -> Optional[str]:
     """EccMatchParameters.solver -> find_transform_ecc_batched's
     ``mode``.  The dataclass default 'forward' maps to None so the
     LIBSTACKER_ECC_MODE env override can flip the formulation without
-    touching params; an explicit solver='ic' always wins."""
+    touching params; an explicit solver='lazy' always wins."""
     s = getattr(params, "solver", "forward")
     return s if s != "forward" else None
 
@@ -103,26 +103,18 @@ def _ecc_mask_jit(mask, scale_hw: Optional[tuple] = None):
     return m
 
 
-@functools.partial(
-    jax.jit,
-    static_argnames=("motion_type", "scale_hw", "allow_pallas", "pallas_k",
-                     "pallas_tile_rows"),
-)
+@functools.partial(jax.jit, static_argnames=("motion_type", "scale_hw"))
 def _ecc_warp_accumulate_jit(
     frames_u8: jnp.ndarray,
     warps: jnp.ndarray,
     oks: jnp.ndarray,
     motion_type: MotionType,
     scale_hw: Optional[tuple] = None,
-    allow_pallas: bool = True,
-    pallas_k: int = 7,
-    pallas_tile_rows: int = 128,
 ):
     """Stage 3: rescale warps if estimated on scaled greys
     (ref src/lib.rs:941-958), warp every frame onto frame 0's grid
     (forward application, BORDER_CONSTANT 0 — ref src/lib.rs:780-803),
-    masked sum over frames.  ``allow_pallas`` is the host-computed
-    kernel-domain dispatch decision (ops.warp_batch)."""
+    masked sum over frames."""
     h, w = frames_u8.shape[1], frames_u8.shape[2]
     if scale_hw is not None:
         warps = _adjust_warp_for_scale(warps, motion_type, scale_hw, (h, w))
@@ -131,40 +123,10 @@ def _ecc_warp_accumulate_jit(
     eye = jnp.eye(3, dtype=warps.dtype)[: warps.shape[1]]
     warps = jnp.where(oks[:, None, None], warps, eye)
     perspective = motion_type == MotionType.Homography
-    # the RAW burst feeds the fused kernel (integer windows, 4x less
-    # HBM traffic than a materialised f32 copy; in-VMEM widen is
-    # bitwise identical to to_unit_f32)
+    # the RAW burst is widened frame by frame inside the accumulation
     return color.to_unit_f32(frames_u8[0]) + warp_accumulate_rgb(
         frames_u8[1:], warps, oks, perspective=perspective,
-        allow_pallas=allow_pallas, pallas_k=pallas_k,
-        pallas_tile_rows=pallas_tile_rows,
     )
-
-
-def _warp_pick_k_host(
-    warps, oks, motion_type: MotionType, scale_hw, full_hw
-):
-    """Host-side Pallas dispatch decision for stage 3: adjust the kept
-    lanes' warps for scale exactly like the jitted stage will, then pick
-    the cheapest kernel (k, tile_rows) config covering them (None ->
-    XLA path; see ops.warp_batch.pallas_pick_config — the tile-shrink
-    rungs keep large legitimate rotations at kernel speed)."""
-    from ..ops import warp_batch
-
-    m = np.asarray(jax.device_get(warps), np.float64)
-    ok = np.asarray(oks)
-    m = m[ok]
-    if m.shape[0] == 0:
-        return warp_batch.pallas_pick_config(m[:0], full_hw[0], full_hw[1])
-    if scale_hw is not None:
-        sx = full_hw[1] / scale_hw[1]
-        sy = full_hw[0] / scale_hw[0]
-        m[:, 0, 2] *= sx
-        m[:, 1, 2] *= sy
-        if motion_type == MotionType.Homography:
-            m[:, 2, 0] /= sx
-            m[:, 2, 1] /= sy
-    return warp_batch.pallas_pick_config(m, full_hw[0], full_hw[1])
 
 
 def _stream_sigma_stack(
@@ -208,7 +170,7 @@ def _stream_sigma_stack(
 
     Returns ``(image [H,W,3] f32, clipped_sample_frac)``.
     """
-    from ..ops import stack as stack_ops, warp_batch
+    from ..ops import stack as stack_ops
 
     h, w = int(hw[0]), int(hw[1])
     eye = np.eye(3, dtype=np.float32)
@@ -220,16 +182,7 @@ def _stream_sigma_stack(
     oks_all = np.concatenate([[True], np.asarray(oks, bool)])
     mats_all = np.concatenate([eye[None], mats3], axis=0)
     mats_all[~oks_all] = eye  # NaN matrices must not reach linalg.inv
-    cfg = warp_batch.pallas_pick_config(mats_all[oks_all], h, w)
-    kw = dict(
-        perspective=perspective,
-        allow_pallas=cfg is not None,
-        pallas_k=cfg[0] if cfg else 7,
-        pallas_tile_rows=cfg[1] if cfg else 128,
-    )
-    kw["fused"] = stack_ops._fused_moments_ok(
-        h, w, kw["allow_pallas"], kw["pallas_k"], kw["pallas_tile_rows"]
-    )
+    kw = dict(perspective=perspective)
     # pad the lane tables once to whole chunks (pad lanes: ok=False)
     n_all = mats_all.shape[0]
     pad = (-n_all) % chunk_size
@@ -244,10 +197,8 @@ def _stream_sigma_stack(
     if mesh is not None:
         from ..parallel import mesh as pmesh
 
-        args = (mesh, kw["perspective"], kw["allow_pallas"],
-                kw["pallas_k"], kw["pallas_tile_rows"], kw["fused"])
-        mom_prog = pmesh._stream_moments_program(*args, False)
-        clip_prog = pmesh._stream_moments_program(*args, True)
+        mom_prog = pmesh._stream_moments_program(mesh, perspective, False)
+        clip_prog = pmesh._stream_moments_program(mesh, perspective, True)
 
     # resumable sweep bookkeeping: which pass is running (0 = initial
     # moments, 1..iters = clip sweeps), the state ENTERING the current
@@ -362,7 +313,7 @@ def ecc_stack_step_graph(
 ):
     """Fully in-graph align+stack step (jittable end to end) — used for
     compile checks and small workloads; production pipelines go through
-    the host-slabbed path in :func:`ecc_match_arrays`."""
+    the host driver in :func:`ecc_match_arrays`."""
     n, h, w = frames_u8.shape[0], frames_u8.shape[1], frames_u8.shape[2]
     grey = color.rgb_to_gray_u8(
         color.depth_reduce_u8(frames_u8)
@@ -515,10 +466,11 @@ def ecc_match_arrays(
     device_output: bool = False,
 ):
     """Array-based ``ecc_match``: ``frames`` is ``[N,H,W,3] uint8`` RGB
-    (numpy, staged to HBM once — or a device-resident ``jax.Array``,
-    used in place with no re-upload).  ``device_output=True`` returns
-    the stacked image as a ``jax.Array`` still in HBM (no D2H
-    materialisation — compose with further device-side processing).
+    (numpy, staged to device memory once — or a device-resident
+    ``jax.Array``, used in place with no re-upload).
+    ``device_output=True`` returns the stacked image as a ``jax.Array``
+    still on the device (no D2H materialisation — compose with further
+    device-side processing).
 
     Returns the stacked ``[H,W,3] float32`` RGB image in [0,1]
     (frame 0's grid), like the reference returns a CV_32F Mat
@@ -547,7 +499,7 @@ def ecc_match_arrays(
     if not isinstance(frames, jax.Array):
         # device-resident bursts pass through untouched (np.asarray on
         # a jax.Array is a full D2H download; callers that already
-        # staged the burst in HBM keep it there)
+        # staged the burst on the device keep it there)
         frames = np.asarray(frames)
     if frames.ndim != 4 or frames.shape[-1] != 3:
         raise InvalidParamsError(
@@ -627,30 +579,8 @@ def ecc_match_arrays(
         mode=_solver_mode(params),
         input_mask=input_mask,
     )
-    # speculative k=1 stage 3 (same trick as the keypoint pipelines):
-    # dispatch the common-case band before the warp matrices cross to
-    # the host for the domain check — converged ECC warps that rode the
-    # solve's k=1 band almost always stack at k=1 too
-    from ..ops.warp_batch import _pallas_usable
-
     sigma = getattr(params, "stacking", "mean") == "sigma_clip"
     sr_factor = getattr(params, "output_scale", 1)
-    speculate = _pallas_usable(h, w) and not sigma and sr_factor == 1
-    spec_sum = None
-    if speculate:
-        spec_sum = _ecc_warp_accumulate_jit(
-            frames_j, result.warp_matrix, result.ok,
-            motion_type=params.motion_type, scale_hw=scale_hw,
-            allow_pallas=True, pallas_k=1,
-        )
-    # the Pallas-dispatch pick needs a blocking device_get of the warp
-    # matrices — skip it on the SR path, which never reads cfg
-    cfg = None
-    if sr_factor == 1:
-        cfg = _warp_pick_k_host(
-            result.warp_matrix, result.ok, params.motion_type, scale_hw,
-            (h, w),
-        )
     if sr_factor > 1:
         # beyond-reference super-resolution stack (ops/stack.py)
         from ..ops import stack as stack_ops
@@ -678,12 +608,7 @@ def ecc_match_arrays(
             frames_j, warps_full, result.ok,
             perspective=params.motion_type == MotionType.Homography,
             kappa=params.sigma_kappa, iters=params.sigma_iters,
-            allow_pallas=cfg is not None,
-            pallas_k=cfg[0] if cfg else 7,
-            pallas_tile_rows=cfg[1] if cfg else 128,
         )
-    elif speculate and cfg == (1, 128):
-        stacked_sum = spec_sum
     else:
         stacked_sum = _ecc_warp_accumulate_jit(
             frames_j,
@@ -691,9 +616,6 @@ def ecc_match_arrays(
             result.ok,
             motion_type=params.motion_type,
             scale_hw=scale_hw,
-            allow_pallas=cfg is not None,
-            pallas_k=cfg[0] if cfg else 7,
-            pallas_tile_rows=cfg[1] if cfg else 128,
         )
     ok = np.asarray(result.ok)
     stats = None
@@ -1027,10 +949,6 @@ def ecc_match_stream(
                 )
             all_warps.append(np.asarray(warps)[:n_real])
         else:
-            cfg = _warp_pick_k_host(
-                result.warp_matrix, ok_lane, params.motion_type, scale_hw,
-                (h, w),
-            )
             warps = result.warp_matrix
             if scale_hw is not None:
                 warps = _adjust_warp_for_scale(
@@ -1039,9 +957,6 @@ def ecc_match_stream(
             acc = acc + warp_accumulate_rgb(
                 frames_j, warps, ok_lane,
                 perspective=params.motion_type == MotionType.Homography,
-                allow_pallas=cfg is not None,
-                pallas_k=cfg[0] if cfg else 7,
-                pallas_tile_rows=cfg[1] if cfg else 128,
             )
         all_ok.append(np.asarray(result.ok)[:n_real])
         all_iters.append(np.asarray(result.num_iters)[:n_real])

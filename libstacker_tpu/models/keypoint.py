@@ -3,7 +3,7 @@
 Counterpart of the reference's dispatcher and two pipelines
 (``keypoint_match`` src/lib.rs:129-144, ``keypoint_match_no_scale``
 src/lib.rs:146-353, ``keypoint_match_scale_down`` src/lib.rs:355-601),
-redesigned TPU-first: one batched device program runs ORB on every
+redesigned for an accelerator: one batched device program runs ORB on every
 frame, Hamming-matmul 2-NN matching against frame 0, ratio/sort/keep
 filtering, vectorised RANSAC homography, full-res perspective warps and
 a masked mean over the frame axis.
@@ -31,7 +31,7 @@ import numpy as np
 from .. import constants
 from ..errors import InvalidParamsError, NotEnoughFilesError
 from ..params import KeyPointMatchParameters
-from ..ops import color, matcher, orb, ransac, resize, warp, warp_batch
+from ..ops import color, matcher, orb, ransac, resize, warp
 from ..ops.warp_batch import warp_accumulate_rgb, warp_frames_batch
 from ..utils import io
 
@@ -73,15 +73,10 @@ def detect_chunk_budget(n: int, h: int, w: int) -> int:
     """Frames per detection dispatch at grid (h, w).
 
     The fused FAST formulation (ops/fast.py) keeps ~8 image-sized live
-    f32 buffers per frame after XLA fusion (was ~20 with the
-    rolled/stacked form).  The budget targets 20-frame chunks at 4K:
-    batch 20 measures 43.4 vs 41.7 fps e2e (detect 16.0 vs
-    17.3 ms/frame) against batch 10 on v5e.  History: batch 20 at 4K
-    REPRODUCIBLY faulted the r3/r4 TPU runtime (the r4 chunk budget
-    pinned 10); the 2026-08-21 runtime no longer faults at batch
-    12/16/20 (bisect driver: benchmarks/bisect_detect_batch.py), so
-    the budget was raised to the measured-faster batch — fenced by
-    tests/test_pipeline_keypoint.py::test_detect_chunk_budget_fence.
+    f32 buffers per frame after XLA fusion.  The fixed 5.4 GB budget of
+    transient detection state gives 20-frame chunks at 4K; it has not
+    been measured against the H100's memory or speed
+    (tests/test_pipeline_keypoint.py::test_detect_chunk_budget_fence).
     """
     budget = int(5.4e9)  # bytes of transient detection state
     per_frame = 8 * h * w * 4
@@ -98,8 +93,7 @@ def _grey_and_detect_scan(
     """Stage 1 as ONE device program: ``lax.scan`` over chunk-sized
     slices of the burst.  Per-step transients stay at the chunk budget
     (each scan step is the same graph the per-chunk dispatch ran), but
-    the host dispatches once — on high-RTT links the per-chunk
-    round-trips were ~half the r3 detect budget (VERDICT weak #2)."""
+    the host dispatches once."""
     n = frames_u8.shape[0]
     stacked = frames_u8.reshape((n // chunk, chunk) + frames_u8.shape[1:])
 
@@ -123,12 +117,10 @@ def detect_features_chunked(
     det_mask: Optional[jnp.ndarray] = None,
 ):
     """Host-chunked stage 1: the dense FAST/ORB programs keep ~8 HW-sized
-    f32 intermediates per frame, so a whole 4K burst cannot be vmapped at
-    once (HBM, and batch 20 faults the device — see
-    :func:`detect_chunk_budget`).  Multi-chunk bursts run as ONE
-    scan-over-chunks program (:func:`_grey_and_detect_scan`;
-    LIBSTACKER_DETECT_SCAN=0 restores the r3 per-chunk dispatch loop
-    for A/B)."""
+    f32 intermediates per frame, so a whole 4K burst is not vmapped at
+    once (see :func:`detect_chunk_budget`).  Multi-chunk bursts run as
+    ONE scan-over-chunks program (:func:`_grey_and_detect_scan`;
+    LIBSTACKER_DETECT_SCAN=0 restores the per-chunk dispatch loop)."""
     n = frames_u8.shape[0]
     if scale_hw is not None:
         h, w = scale_hw
@@ -225,11 +217,7 @@ def _match_and_estimate(
 
 
 @functools.partial(
-    jax.jit,
-    static_argnames=(
-        "border_mode", "scale_hw", "allow_pallas", "pallas_k", "apron",
-        "pallas_tile_rows",
-    ),
+    jax.jit, static_argnames=("border_mode", "scale_hw")
 )
 def _warp_and_accumulate_chunk(
     frames_u8: jnp.ndarray,  # [C,H,W,3] — current frames only, no frame 0
@@ -238,22 +226,10 @@ def _warp_and_accumulate_chunk(
     border_mode: int,
     border_value,
     scale_hw: Optional[tuple] = None,
-    allow_pallas: bool = True,
-    pallas_k: int = 7,
-    apron: int = 0,
-    pallas_tile_rows: int = 128,
 ):
     """Rescale the homographies if estimated on scaled frames,
     perspective-warp every frame to the reference grid, masked sum
-    over the chunk.
-
-    ``allow_pallas`` is the host-computed Pallas-domain decision (see
-    ops.warp_batch.pallas_domain_ok_host): RANSAC homographies are
-    unbounded, so frames whose warp exceeds the kernel's in-tile
-    residual band must take the exact XLA-gather path.  Every border
-    mode runs at kernel speed — non-constant modes via the
-    apron-extended source (ops.warp_batch; ``apron`` from
-    pallas_required_apron, host-computed like ``pallas_k``)."""
+    over the chunk."""
     h, w = frames_u8.shape[1], frames_u8.shape[2]
     if scale_hw is not None:
         hs = _adjust_h_for_scale(hs, scale_hw, (h, w))
@@ -264,33 +240,23 @@ def _warp_and_accumulate_chunk(
     bv = jnp.asarray(border_value[:3], jnp.float32)
     border, _ = warp._resolve_border(border_mode, 0.0)
     if border in ("constant", "transparent"):
-        # fused warp+accumulate kernel (one sweep, no [C,H,W,3]
-        # intermediate, RAW integer burst in — the kernel widens
-        # in-VMEM); TRANSPARENT over a zero dst base is tap-wise
-        # CONSTANT 0 (see ops.warp_batch)
+        # frame-by-frame warp+accumulate of the RAW integer burst;
+        # TRANSPARENT over a zero dst base is tap-wise CONSTANT 0 (see
+        # ops.warp._sample_bilinear)
         return warp_accumulate_rgb(
             frames_u8, hs, oks, perspective=True,
             border_value=jnp.zeros(3) if border == "transparent" else bv,
-            allow_pallas=allow_pallas, pallas_k=pallas_k,
-            pallas_tile_rows=pallas_tile_rows,
         )
     warped = warp_frames_batch(
         color.to_unit_f32(frames_u8), hs, perspective=True,
-        border_value=bv,
-        allow_pallas=allow_pallas, pallas_k=pallas_k,
-        border_mode=border_mode, apron=apron,
-        pallas_tile_rows=pallas_tile_rows,
+        border_value=bv, border_mode=border_mode,
     )
     valid = oks.astype(jnp.float32)[:, None, None, None]
     return jnp.sum(warped * valid, axis=0)
 
 
 @functools.partial(
-    jax.jit,
-    static_argnames=(
-        "border_mode", "scale_hw", "allow_pallas", "pallas_k", "apron",
-        "pallas_tile_rows",
-    ),
+    jax.jit, static_argnames=("border_mode", "scale_hw")
 )
 def _warp_and_accumulate(
     frames_u8: jnp.ndarray,
@@ -299,43 +265,13 @@ def _warp_and_accumulate(
     border_mode: int,
     border_value,
     scale_hw: Optional[tuple] = None,
-    allow_pallas: bool = True,
-    pallas_k: int = 7,
-    apron: int = 0,
-    pallas_tile_rows: int = 128,
 ):
     """Stage 3 for the whole-burst path: frame 0 plus the masked sum of
     the aligned frames 1..N-1."""
     return color.to_unit_f32(frames_u8[0]) + _warp_and_accumulate_chunk(
         frames_u8[1:], hs, oks, border_mode, border_value,
-        scale_hw=scale_hw, allow_pallas=allow_pallas, pallas_k=pallas_k,
-        apron=apron, pallas_tile_rows=pallas_tile_rows,
+        scale_hw=scale_hw,
     )
-
-
-def _pallas_warp_dispatch(kept_hs, h: int, w: int, border_mode: int):
-    """Host-side stage-3 dispatch: pick the cheapest kernel
-    (k, tile_rows) config covering every kept homography (the
-    tile-shrink rungs keep large legitimate rotations at kernel speed),
-    plus the source apron when the border mode is an index-mapping one.
-    -> ((k, tile_rows) or None, apron)."""
-    cfg = warp_batch.pallas_pick_config(kept_hs, h, w)
-    apron = 0
-    if cfg is not None:
-        border = constants.border_mode_name(border_mode)
-        if border in warp_batch._PAD_MODES:
-            apron = warp_batch.pallas_required_apron(
-                kept_hs, h, w, cfg[0], tile=(cfg[1], 128)
-            )
-            if apron is None:
-                cfg, apron = None, 0
-            else:
-                # apron is data-dependent but feeds a jit static arg:
-                # quantise up to a power of two so the compile cache
-                # holds at most ~7 variants instead of one per burst
-                # (recompiles are multi-minute on TPU)
-                apron = max(8, 1 << (apron - 1).bit_length())
-    return cfg, apron
 
 
 def _prepare_det_mask(mask, full_hw, scale_hw):
@@ -558,12 +494,6 @@ def keypoint_match_arrays(
         max_iters=params.max_iters,
         confidence=params.confidence,
     )
-    # Speculative stage 3: dispatch the common-case kernel band (k=1,
-    # no apron) BEFORE the host sync below, so the warp overlaps the
-    # matrix fetch + domain check (a tunnel round-trip on remote
-    # hosts).  A wrong speculation only wastes the speculative program
-    # — out-of-band taps clip inside the kernel and the result is
-    # discarded in favour of the correctly-banded dispatch.
     border = constants.border_mode_name(params.border_mode)
     sigma = getattr(params, "stacking", "mean") == "sigma_clip"
     sr_factor = getattr(params, "output_scale", 1)
@@ -574,38 +504,6 @@ def keypoint_match_arrays(
             "stacking='sigma_clip' / output_scale>1 require "
             "BORDER_CONSTANT or BORDER_TRANSPARENT (sample inclusion is "
             f"defined by warp coverage), got border mode {border!r}"
-        )
-    speculate = (
-        border in ("constant", "transparent")
-        and warp_batch._pallas_usable(h, w)
-        and not sigma
-        and sr_factor == 1
-    )
-    spec_sum = None
-    if speculate:
-        spec_sum = _warp_and_accumulate(
-            frames_j, hs, oks,
-            border_mode=params.border_mode,
-            border_value=tuple(params.border_value),
-            scale_hw=scale_hw, allow_pallas=True, pallas_k=1, apron=0,
-        )
-    # Static Pallas-domain dispatch: pull the (tiny) matrices + masks to
-    # host, adjust for scale exactly like stage 3 will, and check every
-    # KEPT frame's warp against the kernel's residual band.
-    oks_np = np.asarray(oks)
-    hs_np = np.asarray(jax.device_get(hs), np.float64)
-    if scale_hw is not None:
-        sx, sy = w / scale_hw[1], h / scale_hw[0]
-        hs_np[:, 0, 2] *= sx
-        hs_np[:, 1, 2] *= sy
-        hs_np[:, 2, 0] /= sx
-        hs_np[:, 2, 1] /= sy
-    kept_hs = hs_np[oks_np] if oks_np.any() else hs_np[:0]
-    # the Pallas-dispatch pick is host-side band analysis the SR branch
-    # never reads — compute it only for the sigma/mean stacks
-    if sr_factor == 1:
-        cfg, apron = _pallas_warp_dispatch(
-            kept_hs, h, w, params.border_mode
         )
     if sr_factor > 1:
         # beyond-reference super-resolution stack (ops/stack.py)
@@ -628,12 +526,7 @@ def keypoint_match_arrays(
         stacked_img, clip_frac = stack_ops.kappa_sigma_stack(
             frames_j, hs_full, oks, perspective=True,
             kappa=params.sigma_kappa, iters=params.sigma_iters,
-            allow_pallas=cfg is not None,
-            pallas_k=cfg[0] if cfg else 7,
-            pallas_tile_rows=cfg[1] if cfg else 128,
         )
-    elif speculate and cfg == (1, 128):
-        stacked_sum = spec_sum
     else:
         stacked_sum = _warp_and_accumulate(
             frames_j,
@@ -642,12 +535,8 @@ def keypoint_match_arrays(
             border_mode=params.border_mode,
             border_value=tuple(params.border_value),
             scale_hw=scale_hw,
-            allow_pallas=cfg is not None,
-            pallas_k=cfg[0] if cfg else 7,
-            pallas_tile_rows=cfg[1] if cfg else 128,
-            apron=apron,
         )
-    oks = oks_np
+    oks = np.asarray(oks)
     kept = 1 + int(oks.sum())
     dropped = int((~oks).sum())
     fetch = (lambda x: x) if device_output else np.asarray
@@ -935,54 +824,27 @@ def keypoint_match_stream(
             confidence=params.confidence,
         )
         oks = oks & (jnp.arange(chunk_size) < n_real)
-        # speculative k=1 chunk warp overlapping the matrix fetch (same
-        # contract as keypoint_match_arrays' stage 3)
-        border = constants.border_mode_name(params.border_mode)
-        speculate = (
-            not sigma
-            and border in ("constant", "transparent")
-            and warp_batch._pallas_usable(h, w)
-        )
-        spec_sum = None
-        if speculate:
-            spec_sum = _warp_and_accumulate_chunk(
-                frames_j, hs, oks,
-                border_mode=params.border_mode,
-                border_value=tuple(params.border_value),
-                scale_hw=scale_hw, allow_pallas=True, pallas_k=1, apron=0,
-            )
         oks_np = np.asarray(oks)
-        hs_np = np.asarray(jax.device_get(hs), np.float64)
-        if scale_hw is not None:
-            sx, sy = w / scale_hw[1], h / scale_hw[0]
-            hs_np[:, 0, 2] *= sx
-            hs_np[:, 1, 2] *= sy
-            hs_np[:, 2, 0] /= sx
-            hs_np[:, 2, 1] /= sy
         if sigma:
             # sigma-clip streams its moment passes AFTER the align
             # pass: store this chunk's (scale-adjusted) homographies
+            hs_np = np.asarray(jax.device_get(hs), np.float64)
+            if scale_hw is not None:
+                sx, sy = w / scale_hw[1], h / scale_hw[0]
+                hs_np[:, 0, 2] *= sx
+                hs_np[:, 1, 2] *= sy
+                hs_np[:, 2, 0] /= sx
+                hs_np[:, 2, 1] /= sy
             all_hs.append(hs_np[:n_real].astype(np.float32))
         else:
-            kept_hs = hs_np[oks_np] if oks_np.any() else hs_np[:0]
-            cfg, apron = _pallas_warp_dispatch(
-                kept_hs, h, w, params.border_mode
+            acc = acc + _warp_and_accumulate_chunk(
+                frames_j,
+                hs,
+                oks,
+                border_mode=params.border_mode,
+                border_value=tuple(params.border_value),
+                scale_hw=scale_hw,
             )
-            if speculate and cfg == (1, 128):
-                acc = acc + spec_sum
-            else:
-                acc = acc + _warp_and_accumulate_chunk(
-                    frames_j,
-                    hs,
-                    oks,
-                    border_mode=params.border_mode,
-                    border_value=tuple(params.border_value),
-                    scale_hw=scale_hw,
-                    allow_pallas=cfg is not None,
-                    pallas_k=cfg[0] if cfg else 7,
-                    pallas_tile_rows=cfg[1] if cfg else 128,
-                    apron=apron,
-                )
         all_ok.append(oks_np[:n_real])
         all_mc.append(np.asarray(mcounts)[:n_real])
         all_ic.append(np.asarray(icounts)[:n_real])

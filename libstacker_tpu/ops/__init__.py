@@ -10,5 +10,4 @@ from . import (  # noqa: F401
     sharpness,
     warp,
     warp_batch,
-    warp_pallas,
 )

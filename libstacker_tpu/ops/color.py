@@ -1,6 +1,6 @@
 """Color conversion and dtype-normalisation ops.
 
-TPU-native counterparts of the reference's per-frame decode helpers
+Device counterparts of the reference's per-frame decode helpers
 (``read_grey_and_f32``, ref src/utils.rs:128-144): grayscale conversion
 uses OpenCV's exact Rec.601 fixed-point arithmetic (SURVEY.md N17) and
 u8->f32 normalisation multiplies by 1/255 (SURVEY.md N18).  All ops are

@@ -1,6 +1,6 @@
 """FAST-9/16 corner detection + Harris responses, fully vectorised.
 
-Part of the TPU-native ORB stack (SURVEY.md N4; the reference calls
+Part of the device ORB stack (SURVEY.md N4; the reference calls
 OpenCV's ``ORB::detect_and_compute`` at src/utils.rs:174-183).  The
 segment test, corner score and 3x3 non-max suppression are dense
 elementwise programs over the whole image (VPU work, XLA-fused) instead
@@ -169,10 +169,9 @@ def top_k_keypoints(
     order, mirroring OpenCV's stable retainBest ordering closely
     enough for statistical parity).
 
-    ``approx=True`` uses ``lax.approx_max_k`` — the TPU-native top-k
-    (exact ``lax.top_k`` over a full image compiles pathologically
-    slowly on TPU and its recall loss here is ~1-2% of *candidates*,
-    before Harris re-ranking).
+    ``approx=True`` uses ``lax.approx_max_k`` (its recall loss here is
+    ~1-2% of *candidates*, before Harris re-ranking; on GPU and CPU
+    backends XLA lowers it to an exact sort and slice).
 
     LIBSTACKER_TOPK=pooled routes approximate requests through
     :func:`top_k_keypoints_nms` (hardware A/B knob).  Only valid when

@@ -1,6 +1,6 @@
 """Separable correlation filters with OpenCV border semantics.
 
-TPU-native replacements for the OpenCV filter calls used by the
+Device replacements for the OpenCV filter calls used by the
 reference's sharpness metrics and the ECC engine (SURVEY.md N12-N14):
 ``sep_filter_2d`` (src/lib.rs:1038-1061), ``laplacian``
 (src/lib.rs:1076-1084), ``sobel`` (src/lib.rs:1111-1132), plus the

@@ -1,11 +1,11 @@
 """Brute-force Hamming 2-NN matching + Lowe ratio filtering.
 
-TPU-native counterpart of ``BFMatcher(NORM_HAMMING, crossCheck=false)``
+Device counterpart of ``BFMatcher(NORM_HAMMING, crossCheck=false)``
 ``knn_match(k=2)`` plus the reference's ratio/sort/keep-ratio filter
 (SURVEY.md N1/N2; ref src/lib.rs:208-242, 435-480).
 
 Design: 256-bit binary descriptors are unpacked to {0,1} vectors so the
-Hamming distance matrix becomes one MXU matmul via the identity
+Hamming distance matrix becomes one matrix product via the identity
 ``popcount(a XOR b) = |a| + |b| - 2 a.b``.  All keypoint sets are
 fixed-capacity with validity masks (JAX static shapes), so a whole burst
 matches in one fused program.
@@ -44,7 +44,7 @@ def hamming_distance_matrix(
     query_bits: jnp.ndarray, train_bits: jnp.ndarray
 ) -> jnp.ndarray:
     """[Q,256] x [T,256] {0,1} -> [Q,T] float32 Hamming distances via the
-    XOR-popcount-as-matmul identity (one MXU matmul)."""
+    XOR-popcount-as-matmul identity (one matrix product)."""
     q_pop = jnp.sum(query_bits, axis=-1, keepdims=True)
     t_pop = jnp.sum(train_bits, axis=-1, keepdims=True)
     dot = jnp.matmul(query_bits, train_bits.T, precision=_HIGHEST)

@@ -1,6 +1,6 @@
 """ORB keypoint detection + rBRIEF description, batched and static-shape.
 
-TPU-native counterpart of OpenCV's all-default ``ORB::create_def()``
+Device counterpart of OpenCV's all-default ``ORB::create_def()``
 ``detect_and_compute`` (SURVEY.md N4; ref src/utils.rs:174-183 —
 nfeatures=500, scaleFactor=1.2, nlevels=8, edgeThreshold=31, WTA_K=2,
 HARRIS_SCORE, patchSize=31, fastThreshold=20):
@@ -29,7 +29,36 @@ import jax.numpy as jnp
 import numpy as np
 
 from .. import constants
-from . import fast, fast_pallas, filters, orb_pallas, resize
+from . import fast, filters, resize
+
+# Patch radii: 18 covers every DESCRIPTOR consumer — Harris needs +-5
+# (7x7 block + Sobel support), the IC angle +-15, and rBRIEF's rotated
+# pattern taps +-18 (|pattern| <= 13 -> rotated |offset| <=
+# round(13*sqrt(2)) = 18; ORB's edge_threshold 31 keeps all taps
+# in-image).  BLUR_RADIUS additionally carries the GaussianBlur(7,
+# sigma 2) support, so the PATCHES (a few hundred 43x43 tiles) are
+# blurred instead of every full level image — exact, because
+# edge_threshold keeps the blur support off the image border.
+PATCH_RADIUS = 18
+PATCH_SIDE = 2 * PATCH_RADIUS + 1  # 37
+BLUR_RADIUS = PATCH_RADIUS + 3
+
+
+def extract_patches(
+    img: jnp.ndarray, ys, xs, radius: int = PATCH_RADIUS
+) -> jnp.ndarray:
+    """[K, side, side] float32 patches around (ys, xs) by one XLA gather,
+    with CLAMPED patch origins (patches of keypoints nearer than
+    ``radius`` to a border shift inward; ORB keypoints never are)."""
+    side = 2 * radius + 1
+    h, w = img.shape
+    y0 = jnp.clip(ys - radius, 0, h - side)
+    x0 = jnp.clip(xs - radius, 0, w - side)
+    offs = jnp.arange(side)
+    py = y0[:, None, None] + offs[None, :, None]
+    px = x0[:, None, None] + offs[None, None, :]
+    return img.astype(jnp.float32)[py, px]
+
 
 try:
     from ._orb_pattern import ORB_PATTERN
@@ -97,10 +126,10 @@ def _ic_angle_weights(half_patch: int = 15):
 
 
 def _ic_angles_from_patches(
-    patches: jnp.ndarray, center: int = orb_pallas.PATCH_RADIUS
+    patches: jnp.ndarray, center: int = PATCH_RADIUS
 ) -> jnp.ndarray:
     """Intensity-centroid orientation (degrees in [0,360)) from
-    [K, side, side] keypoint patches (ops/orb_pallas layout; the
+    [K, side, side] keypoint patches (:func:`extract_patches`; the
     radius-15 circular weights sit in the central 31x31 around
     ``center``)."""
     wu, wv = _ic_angle_weights()
@@ -122,7 +151,7 @@ def _blur_patches_valid(patches: jnp.ndarray) -> jnp.ndarray:
     never engages.  Blurring a few hundred 43x43 patches replaces a
     full-image blur per pyramid level."""
     kern = filters.gaussian_kernel(7, 2.0)
-    side = orb_pallas.PATCH_SIDE
+    side = PATCH_SIDE
     rows = None
     for i, kw in enumerate(kern):
         term = kw * patches[:, i : i + side, :]
@@ -142,14 +171,7 @@ def _rbrief_from_patches(patches: jnp.ndarray, angles_deg) -> jnp.ndarray:
     ``take_along_axis`` gather per patch: |pattern| <= 13 so every
     rotated offset lies within +-18 = the patch radius (ORB's
     edge_threshold 31 keeps taps in-image, matching OpenCV's unclamped
-    GET_VALUE).  An earlier one-hot two-einsum (MXU) formulation was
-    bit-identical and ~10% faster in a 4-frame detection chunk, but
-    reproducibly FAULTED the TPU when composed into the full
-    vmapped detection program at batch >= 10 (XLA scheduling bug —
-    every sub-stage ran clean in isolation); the gather is stable at
-    batch 10 and lets detection run in 10-frame chunks, which is a
-    net win (fewer dispatches, ~21 vs ~27 ms/frame through
-    descriptors measured on v5e)."""
+    GET_VALUE)."""
     pat = jnp.asarray(ORB_PATTERN, dtype=jnp.float32)  # [256,4]
     ang = jnp.deg2rad(angles_deg)
     a = jnp.cos(ang)[:, None]
@@ -157,8 +179,8 @@ def _rbrief_from_patches(patches: jnp.ndarray, angles_deg) -> jnp.ndarray:
     # OpenCV: col off = round(x*a - y*b), row off = round(x*b + y*a)
     px_ = jnp.concatenate([pat[:, 0], pat[:, 2]])  # [512]
     py_ = jnp.concatenate([pat[:, 1], pat[:, 3]])
-    c = orb_pallas.PATCH_RADIUS
-    side = orb_pallas.PATCH_SIDE
+    c = PATCH_RADIUS
+    side = PATCH_SIDE
     rx = jnp.round(px_[None] * a - py_[None] * b).astype(jnp.int32) + c
     ry = jnp.round(px_[None] * b + py_[None] * a).astype(jnp.int32) + c
     flat = patches.reshape(patches.shape[0], -1)  # [K, side*side]
@@ -205,7 +227,7 @@ def orb_detect_and_compute(
     # user values cannot silently produce off-centre clamped patches.
     # (Documented deviation: OpenCV would detect keypoints closer to
     # the border and sample its padded blur there.)
-    edge_threshold = max(edge_threshold, orb_pallas.BLUR_RADIUS + 3)
+    edge_threshold = max(edge_threshold, BLUR_RADIUS + 3)
 
     level_img = img
     level_mask = None
@@ -234,38 +256,30 @@ def orb_detect_and_compute(
         quota = quotas[level]
         if quota == 0 or lh <= 2 * edge_threshold or lw <= 2 * edge_threshold:
             continue
-        if fast_pallas.usable(lh, lw):
-            # one-pass fused FAST-9/16 + cornerScore + NMS +
-            # edge_threshold band (ops/fast_pallas)
-            score = fast_pallas.fast_scores(
-                level_img, fast_threshold, edge_threshold
-            )
-            det = score > 0.0
-        else:
-            det, score = fast.fast_detect(level_img, fast_threshold)
-            ys_g = jnp.arange(lh)[:, None]
-            xs_g = jnp.arange(lw)[None, :]
-            border_ok = (
-                (xs_g >= edge_threshold)
-                & (xs_g < lw - edge_threshold)
-                & (ys_g >= edge_threshold)
-                & (ys_g < lh - edge_threshold)
-            )
-            det = det & border_ok
+        det, score = fast.fast_detect(level_img, fast_threshold)
+        ys_g = jnp.arange(lh)[:, None]
+        xs_g = jnp.arange(lw)[None, :]
+        border_ok = (
+            (xs_g >= edge_threshold)
+            & (xs_g < lw - edge_threshold)
+            & (ys_g >= edge_threshold)
+            & (ys_g < lh - edge_threshold)
+        )
+        det = det & border_ok
         if level_mask is not None:
             # after NMS, like KeyPointsFilter::runByPixelsMask
             det = det & (level_mask > 0.5)
         cand = fast.top_k_keypoints(det, score, min(2 * quota, lh * lw))
-        # ONE window-DMA per candidate (ops/orb_pallas) at the blur
-        # radius: the raw 43x43 patch carries Harris, the IC angle AND
-        # the Gaussian support of every rBRIEF tap, so the per-level
-        # full-image blur + second extraction disappear; every later
-        # stage is static-slice / one-hot math over the patches
-        cand_patches = orb_pallas.extract_patches(
+        # ONE patch gather per candidate at the blur radius: the raw
+        # 43x43 patch carries Harris, the IC angle AND the Gaussian
+        # support of every rBRIEF tap, so the per-level full-image blur
+        # + second extraction disappear; every later stage is
+        # static-slice math over the patches
+        cand_patches = extract_patches(
             level_img.astype(jnp.float32), cand.ys, cand.xs,
-            radius=orb_pallas.BLUR_RADIUS,
+            radius=BLUR_RADIUS,
         )
-        br = orb_pallas.BLUR_RADIUS
+        br = BLUR_RADIUS
         hsub = cand_patches[:, br - 4 : br + 5, br - 4 : br + 5]
         harris = fast.harris_from_patches(hsub)
         harris = jnp.where(cand.valid, harris, -jnp.inf)

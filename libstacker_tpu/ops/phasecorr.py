@@ -8,7 +8,7 @@ same converged warp (the init only moves the start point inside the
 same basin), a fraction of the iterations when the burst has real
 pixel-scale shifts.
 
-TPU notes: everything is jittable (``jnp.fft`` lowers to XLA FFT), one
+Device notes: everything is jittable (``jnp.fft`` lowers to XLA FFT), one
 program for the whole burst, and the correlation peak is located with
 ``argmax`` + a 3-point parabolic refinement — no host round-trip.
 

@@ -1,10 +1,10 @@
 """Vectorised RANSAC / LMEDS homography estimation.
 
-TPU-native counterpart of ``calib3d::find_homography`` (SURVEY.md N3;
+Device counterpart of ``calib3d::find_homography`` (SURVEY.md N3;
 call sites ref src/lib.rs:267-276, 504-513).  OpenCV runs a sequential
 adaptive RANSAC loop (up to ``maxIters``=2000 with confidence-based
 early exit); here hypotheses are generated in fixed-size SLABS — each
-slab is a batched 4-point DLT (one 8x8 MXU solve per hypothesis) scored
+slab is a batched 4-point DLT (one 8x8 solve per hypothesis) scored
 against every correspondence at once — inside a ``lax.while_loop``
 whose trip count follows OpenCV's ``RANSACUpdateNumIters`` rule: stop
 once enough hypotheses were drawn that, at the observed inlier ratio,
@@ -32,6 +32,16 @@ import numpy as np
 from .. import constants
 
 _HIGHEST = jax.lax.Precision.HIGHEST
+
+
+def _denormalise(t_dst_inv, h, t_src):
+    """``t_dst_inv @ h @ t_src`` in full f32 (no TF32 rounding)."""
+    return jnp.matmul(
+        jnp.matmul(t_dst_inv, h, precision=_HIGHEST), t_src,
+        precision=_HIGHEST,
+    )
+
+
 _BIG = np.float32(1e18)  # numpy scalar: no backend init at import
 
 
@@ -228,7 +238,9 @@ def find_homography(
             finite[:, None, None], h_all, jnp.eye(3, dtype=jnp.float32)
         )
         # errors in *unnormalised* pixel units: denormalise per hypothesis
-        h_px = jnp.einsum("ij,sjk,kl->sil", t_dst_inv, h_all, t_src)
+        h_px = jnp.einsum(
+            "ij,sjk,kl->sil", t_dst_inv, h_all, t_src, precision=_HIGHEST
+        )
         errs = jax.vmap(lambda h: _sq_reproj_error(h, src_pts, dst_pts))(h_px)
         errs = jnp.where(valid[None, :], errs, _BIG)
         errs = jnp.where(jnp.isfinite(errs), errs, _BIG)
@@ -241,7 +253,7 @@ def find_homography(
         # findHomography (src/lib.rs:267-276).
         wts = valid.astype(jnp.float32)
         h_ls = _dlt_least_squares(src_n, dst_n, wts)
-        h_px = t_dst_inv @ h_ls @ t_src
+        h_px = _denormalise(t_dst_inv, h_ls, t_src)
         h_px = h_px / jnp.where(
             jnp.abs(h_px[2, 2]) < 1e-12, 1e-12, h_px[2, 2]
         )
@@ -318,7 +330,7 @@ def find_homography(
 
     # least-squares DLT on inliers (normalised coords), then GN polish
     h_ls = _dlt_least_squares(src_n, dst_n, wts)
-    h_ls_px = t_dst_inv @ h_ls @ t_src
+    h_ls_px = _denormalise(t_dst_inv, h_ls, t_src)
     h_ls_px = h_ls_px / jnp.where(
         jnp.abs(h_ls_px[2, 2]) < 1e-12, 1e-12, h_ls_px[2, 2]
     )

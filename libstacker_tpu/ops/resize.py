@@ -5,10 +5,9 @@ The reference's ``scale_image`` helper (src/utils.rs:186-214) shrinks with
 equals ``scale_down`` (despite its docs saying "width" — see
 src/utils.rs:192-196).  ORB's pyramid uses INTER_LINEAR.
 
-TPU design: both area-averaging and bilinear resize are *separable* linear
+Design: both area-averaging and bilinear resize are *separable* linear
 maps, so we materialise per-axis weight matrices on host (cached) and
-apply them as two dense matmuls — this runs on the MXU instead of a
-scatter/gather loop, and XLA fuses the pair.  Weight construction
+apply them as two dense matmuls instead of a scatter/gather loop, and XLA fuses the pair.  Weight construction
 reproduces OpenCV semantics:
 
 - INTER_AREA: each dst pixel averages the exact fractional source span

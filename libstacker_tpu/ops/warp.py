@@ -1,6 +1,6 @@
 """Affine / perspective warps (inverse-map bilinear resampling).
 
-TPU-native counterpart of ``imgproc::warp_perspective`` /
+Device counterpart of ``imgproc::warp_perspective`` /
 ``imgproc::warp_affine`` (SURVEY.md N5/N6; call sites ref
 src/lib.rs:291-299, 536-544, 782-802, 964-983): every output pixel is
 inverse-mapped through the transform, bilinearly sampled with a

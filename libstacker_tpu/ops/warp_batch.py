@@ -1,231 +1,19 @@
-"""Batched frame warping with automatic kernel dispatch.
+"""Batched frame warping.
 
 Warps an [N,H,W,C] burst with per-frame matrices (forward OpenCV
 semantics: the matrix is inverted internally like warpPerspective,
-ref src/lib.rs:291-299): uses the Pallas tiled kernel on TPU for large
-frames (ops.warp_pallas), the XLA-gather path elsewhere.
-
-Border modes at kernel speed (the reference feeds
-``params.border_mode`` straight into OpenCV's C++ warp,
-src/lib.rs:66-72, 291-299): BORDER_CONSTANT and BORDER_TRANSPARENT run
-the kernel directly (TRANSPARENT with a zero destination base is
-tap-wise identical to CONSTANT 0 — see ops.warp._sample_bilinear); the
-index-mapping modes (REPLICATE / REFLECT / REFLECT_101 / WRAP) warp an
-**apron-extended** source: the source is pre-extended by ``apron``
-pixels with the mode's semantics (one cheap XLA pad per burst), the
-inverse matrices are shifted by the apron, and the BORDER_CONSTANT
-kernel runs against the extended source onto the original output grid.
-Because the apron shift is integer it commutes exactly with OpenCV's
-1/32-px coordinate quantisation, so the result is bit-identical to the
-XLA borderInterpolate path whenever every tap lands inside the apron —
-which :func:`pallas_required_apron` guarantees on the host.
+ref src/lib.rs:291-299) on XLA's gather path, with every border mode
+the reference feeds into OpenCV's C++ warp (src/lib.rs:66-72).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Union
 
 import jax
 import jax.numpy as jnp
 
-from . import warp
-
-# jnp.pad modes implementing OpenCV borderInterpolate semantics
-_PAD_MODES = {
-    "replicate": "edge",
-    "reflect101": "reflect",
-    "reflect": "symmetric",
-    "wrap": "wrap",
-}
-
-# beyond this the pad cost outgrows the kernel win; fall back to XLA
-_MAX_APRON = 512
-
-
-def _warp_tile_cols(wp: int, rows: int = 128) -> int:
-    """Tile columns for the warp/accum kernels (LIBSTACKER_WARP_TILE_COLS,
-    default 128).  The kernels' DMA window is ``tile_cols + 256`` wide
-    (the 256 slack covers the +-128 px window-origin quantisation), so
-    wider tiles amortise the column DMA the way the fused ECC kernel's
-    (128,256) default does — but the domain band is per-axis in-tile
-    variation, so wider tiles also shrink rotation coverage; only a
-    hardware A/B can arbitrate the default.  The wide setting applies
-    ONLY to the standard 128-row rungs: the shrunk-row rungs exist to
-    EXTEND rotation coverage, which wide columns would undo (the rule
-    is applied identically at dispatch-check and warp time, keeping the
-    domain gate and the kernel geometry consistent).  Falls back to 128
-    when the padded image is too narrow for the wider window."""
-    import os
-
-    v = os.environ.get("LIBSTACKER_WARP_TILE_COLS")
-    if not v or rows < 128:
-        return 128
-    c = int(v)
-    if c % 128 != 0 or not (128 <= c <= 1024):
-        raise ValueError(
-            "LIBSTACKER_WARP_TILE_COLS must be a multiple of 128 in "
-            f"128..1024, got {v!r}"
-        )
-    return c if wp >= c + 256 else 128
-
-
-def _pallas_usable(h: int, w: int) -> bool:
-    import os
-
-    if os.environ.get("LIBSTACKER_DISABLE_PALLAS"):
-        return False
-    if os.environ.get("LIBSTACKER_FORCE_PALLAS"):
-        return h >= 160 and w >= 384
-    try:
-        backend = jax.default_backend()
-    except Exception:
-        return False
-    return backend == "tpu" and h >= 160 and w >= 384
-
-
-def _warp_interpret() -> bool:
-    """Interpret-mode switch for the warp kernel (CPU CI, paired with
-    LIBSTACKER_FORCE_PALLAS like the ECC kernel's switch)."""
-    import os
-
-    return bool(os.environ.get("LIBSTACKER_WARP_INTERPRET"))
-
-
-# (k, tile_rows) dispatch ladder.  The kernel's correctness domain is
-# a (k + 0.5)-px bound on IN-TILE warp-field variation, which for a
-# rotation scales with the tile half-diagonal — so after the tap-loop
-# band is exhausted at the standard 128x128 tile (~4.7 deg at 4K),
-# SHRINKING THE TILE ROWS extends kernel-speed coverage (columns are
-# pinned to 128 by the Mosaic lane tiling): (15, 64) reaches ~12 deg,
-# (23, 32) ~20 deg, (40, 32) ~34 deg.  Each rung costs more (taps are
-# O((2k+4)^2), smaller tiles amplify the window DMA) but the last rung
-# is still ~an order of magnitude faster than the XLA-gather fallback
-# at 4K.  Addresses the large-legitimate-motion cliff (reference runs
-# arbitrary homographies at full speed, src/lib.rs:291-299).
-_CONFIG_LADDER = (
-    (1, 128), (3, 128), (7, 128),
-    (15, 64), (23, 32), (40, 32),
-)
-
-
-def pallas_pick_config(mats, h: int, w: int, configs=_CONFIG_LADDER):
-    """Cheapest (k, tile_rows) rung whose kernel domain covers EVERY
-    forward matrix, or ``None`` when none does (XLA-gather fallback).
-    The column extent is the env-resolved :func:`_warp_tile_cols` so the
-    domain check matches the tile the warp will actually run."""
-    hp = ((h + 7) // 8) * 8
-    wp = ((w + 127) // 128) * 128
-    for k, rows in configs:
-        cols = _warp_tile_cols(wp, rows)
-        wh = ((rows + 2 * k + 10 + 7) // 8) * 8
-        if hp < wh or wp < cols + 256:
-            continue
-        if pallas_domain_ok_host(mats, h, w, k=k, tile=(rows, cols)):
-            return k, rows
-    return None
-
-
-def pallas_pick_k(mats, h: int, w: int, ks=(1, 3, 7)):
-    """Smallest residual band k (from ``ks``) at the standard 128-row
-    tile, or ``None``.  Prefer :func:`pallas_pick_config`, which also
-    climbs the tile-shrinking rungs for large motions."""
-    cols = _warp_tile_cols(((w + 127) // 128) * 128)
-    for k in ks:
-        if pallas_domain_ok_host(mats, h, w, k=k, tile=(128, cols)):
-            return k
-    return None
-
-
-def pallas_domain_ok_host(
-    mats, h: int, w: int, k: int = 7, tile=(128, 128)
-) -> bool:
-    """Host-side dispatch decision: True iff EVERY forward matrix's
-    inverse map stays inside the Pallas kernel's residual-displacement
-    domain (ops.warp_pallas.residual_domain_ok).  Pipelines call this
-    once per burst (a tiny [N,3,3] sync) and pass the static result to
-    their jitted warp stage, so out-of-domain warps (wild RANSAC
-    homographies, large legitimate rotations) fall back to the exact
-    XLA-gather path instead of silently clipping to the border."""
-    import numpy as np
-
-    from . import warp_pallas
-
-    if not _pallas_usable(h, w):
-        return False
-    m = np.asarray(jax.device_get(mats), np.float64)
-    m3 = m if m.shape[-2] == 3 else np.concatenate(
-        [m, np.tile(np.asarray([[[0.0, 0.0, 1.0]]]), (m.shape[0], 1, 1))],
-        axis=1,
-    )
-    dets = np.linalg.det(m3)
-    if not np.all(np.isfinite(m3)) or np.any(np.abs(dets) < 1e-12):
-        return False
-    minv = np.linalg.inv(m3)
-    ok = warp_pallas.residual_domain_ok(
-        minv.astype(np.float32), h, w, k=k, tile=tile, xp=np
-    )
-    return bool(np.asarray(ok).all())
-
-
-def pallas_required_apron(
-    mats, h: int, w: int, k: int, tile=(128, 128)
-) -> Optional[int]:
-    """Host-side: the smallest source apron (px) that keeps every
-    bilinear tap of every FORWARD matrix inside the extended source.
-
-    Valid only for matrices that already passed
-    :func:`pallas_domain_ok_host` at band ``k``: the domain check bounds
-    every pixel's source DISPLACEMENT within ``k + 0.5`` px of its tile
-    samples', so sampling source coordinates on each tile's 3x3 grid
-    (corners capture the position term, which varies by the full tile
-    extent) plus a ``k + 2`` margin (0.5 centre rounding + 1 floor tap
-    + in-between variation) covers the continuous field.  Returns None
-    when the needed apron exceeds ``_MAX_APRON`` (fall back to the XLA
-    path)."""
-    import numpy as np
-
-    m = np.asarray(jax.device_get(mats), np.float64)
-    if m.shape[0] == 0:
-        return 0
-    m3 = m if m.shape[-2] == 3 else np.concatenate(
-        [m, np.tile(np.asarray([[[0.0, 0.0, 1.0]]]), (m.shape[0], 1, 1))],
-        axis=1,
-    )
-    if not np.all(np.isfinite(m3)):
-        return None
-    minv = np.linalg.inv(m3)
-    th, tw = tile  # sample on the ACTUAL tile grid the kernel will run
-    oy = np.arange((h + th - 1) // th, dtype=np.float64) * th
-    ox = np.arange((w + tw - 1) // tw, dtype=np.float64) * tw
-    offs = np.asarray(
-        [[0, 0], [0, tw / 2], [0, tw],
-         [th / 2, 0], [th / 2, tw / 2], [th / 2, tw],
-         [th, 0], [th, tw / 2], [th, tw]],
-        np.float64,
-    )
-    py = (oy[:, None, None] + 0 * ox[None, :, None]
-          + offs[None, None, :, 0]).reshape(1, -1)
-    px = (0 * oy[:, None, None] + ox[None, :, None]
-          + offs[None, None, :, 1]).reshape(1, -1)
-    # clamp phantom samples of edge tiles to the real output extent
-    py = np.minimum(py, h - 1.0)
-    px = np.minimum(px, w - 1.0)
-    with np.errstate(divide="ignore", invalid="ignore"):
-        den = minv[:, 2, 0, None] * px + minv[:, 2, 1, None] * py \
-            + minv[:, 2, 2, None]
-        sx = (minv[:, 0, 0, None] * px + minv[:, 0, 1, None] * py
-              + minv[:, 0, 2, None]) / den
-        sy = (minv[:, 1, 0, None] * px + minv[:, 1, 1, None] * py
-              + minv[:, 1, 2, None]) / den
-    exc = max(
-        0.0,
-        float(np.max(-sx)), float(np.max(sx - (w - 1))),
-        float(np.max(-sy)), float(np.max(sy - (h - 1))),
-    )
-    if not np.isfinite(exc):
-        return None
-    apron = int(np.ceil(exc)) + k + 2
-    return apron if apron <= _MAX_APRON else None
+from . import color, warp
 
 
 def warp_frames_batch(
@@ -233,81 +21,12 @@ def warp_frames_batch(
     mats: jnp.ndarray,  # [N,3,3] (or [N,2,3] affine), forward maps
     perspective: bool = True,
     border_value=0.0,
-    allow_pallas: bool = True,
-    pallas_k: int = 7,
     border_mode: Union[int, str] = "constant",
-    apron: int = 0,
-    pallas_tile_rows: int = 128,
 ) -> jnp.ndarray:
-    """Warp each frame onto its own grid with the given border mode.
-
-    ``allow_pallas``: static host-computed dispatch decision (see
-    :func:`pallas_domain_ok_host`) — the Pallas kernel's correctness
-    domain is a k-pixel bound on in-tile warp-field variation, so
-    callers with potentially-large warps must pre-check.
-    ``pallas_k``/``pallas_tile_rows`` are the config that check
-    validated (see :func:`pallas_pick_config`).  Non-constant
-    index-mapping border modes additionally need ``apron`` from
-    :func:`pallas_required_apron` (see module docstring); pass
-    ``allow_pallas=False`` when it returned None."""
-    has_c = frames.ndim == 4
-    n = frames.shape[0]
+    """Warp each frame onto its own grid with the given border mode."""
     h, w = frames.shape[1], frames.shape[2]
     border, border_value = warp._resolve_border(border_mode, border_value)
     m3 = mats if mats.shape[-2] == 3 else jax.vmap(warp.affine_to_3x3)(mats)
-    kernel_ok = allow_pallas and _pallas_usable(h, w) and (
-        border in ("constant", "transparent")
-        or (border in _PAD_MODES and 0 < apron <= _MAX_APRON)
-    )
-    if kernel_ok:
-        from . import warp_pallas
-
-        minv = jnp.linalg.inv(m3.astype(jnp.float32))
-        if border == "transparent":
-            # zero destination base: tap-wise identical to CONSTANT 0
-            border_value = 0.0
-        out_hw = None
-        src_frames = frames
-        if border in _PAD_MODES:
-            p = apron
-            pad = ((0, 0), (p, p), (p, p)) + (((0, 0),) if has_c else ())
-            src_frames = jnp.pad(frames, pad, mode=_PAD_MODES[border])
-            # source coords shift by +apron on both axes: rows 0,1 of
-            # the inverse map gain apron * row 2 (exact — the integer
-            # shift commutes with the 1/32 quantisation)
-            minv = minv.at[:, 0, :].add(float(p) * minv[:, 2, :])
-            minv = minv.at[:, 1, :].add(float(p) * minv[:, 2, :])
-            out_hw = (h, w)
-            border_value = 0.0  # unreachable by construction of apron
-        sh, sw = src_frames.shape[1], src_frames.shape[2]
-        bv = jnp.broadcast_to(
-            jnp.asarray(border_value, jnp.float32).reshape(-1),
-            (frames.shape[-1],) if has_c else (1,),
-        )
-        interpret = _warp_interpret()
-        # columns from the ORIGINAL padded width, exactly like the
-        # host-side domain checks (pallas_pick_config) — the
-        # apron-extended source is wider, but widening the tile beyond
-        # what the check validated could leave the band uncovered
-        wp0 = ((w + 127) // 128) * 128
-        tile = (pallas_tile_rows, _warp_tile_cols(wp0, pallas_tile_rows))
-        if has_c:
-            c = frames.shape[-1]
-            src = jnp.moveaxis(src_frames, -1, 1).reshape(n * c, sh, sw)
-            m_rep = jnp.repeat(minv, c, axis=0)
-            bvs = jnp.tile(jnp.broadcast_to(bv, (c,)), (n,))
-            out = warp_pallas.warp_bilinear_pallas(
-                src, m_rep, border_value=bvs,
-                quant_affine=not perspective, k=pallas_k, tile=tile,
-                out_hw=out_hw, interpret=interpret,
-            )
-            out = out.reshape(n, c, h, w)
-            return jnp.moveaxis(out, 1, -1)
-        return warp_pallas.warp_bilinear_pallas(
-            src_frames, minv, border_value=jnp.broadcast_to(bv[:1], (n,)),
-            quant_affine=not perspective, k=pallas_k, tile=tile,
-            out_hw=out_hw, interpret=interpret,
-        )
 
     def warp_one(frame, m):
         if perspective:
@@ -329,66 +48,25 @@ def warp_accumulate_rgb(
     oks: jnp.ndarray,  # [N] bool — dropped lanes contribute 0
     perspective: bool = True,
     border_value=0.0,
-    allow_pallas: bool = True,
-    pallas_k: int = 7,
-    pallas_tile_rows: int = 128,
 ) -> jnp.ndarray:
     """Stage-3 fusion: ``sum_n oks[n] * warp(frames[n])`` -> [H,W,3]
-    (BORDER_CONSTANT).  On TPU this is ONE kernel sweep
-    (ops/warp_accum_pallas): channel-interleaved windows share one
-    weight set across a pixel's 3 channels (~3x less tap work than
-    three per-channel warps), the output tile accumulates across frames
-    in VMEM, and no [N,H,W,3] warped intermediate exists.  Falls back
-    to :func:`warp_frames_batch` + masked sum elsewhere.  Same
-    ``allow_pallas``/``pallas_k``/``pallas_tile_rows`` gating
-    contract.
-
-    ``frames`` may be the RAW uint8/uint16 burst: the kernel DMAs the
-    integer windows (4x/2x less HBM traffic than the materialised f32
-    burst) and widens+normalises in-VMEM — results are bitwise
-    identical to feeding ``color.to_unit_f32(frames)``.  Off the
-    kernel path the conversion happens here."""
-    h, w = frames.shape[1], frames.shape[2]
+    (BORDER_CONSTANT).  One scan step per frame: the raw integer frame
+    is widened (``color.to_unit_f32``), warped and added to the running
+    sum, so no [N,H,W,3] f32 intermediate exists and each frame is read
+    once."""
     m3 = mats if mats.shape[-2] == 3 else jax.vmap(warp.affine_to_3x3)(mats)
-    # NaN/garbage matrices of dropped lanes must not reach the kernel
+    # NaN/garbage matrices of dropped lanes must not reach the warp
     m3 = jnp.where(oks[:, None, None], m3, jnp.eye(3, dtype=m3.dtype))
-    integer_src = frames.dtype in (jnp.uint8, jnp.uint16)
-    # the fused kernel's window must fit the (padded) source; integer
-    # sources carry row_align-1 rows of clip-floor slack (u8: 32)
-    row_align = {jnp.dtype(jnp.uint8): 32, jnp.dtype(jnp.uint16): 16}.get(
-        frames.dtype, 8
-    )
-    wp = ((w + 127) // 128) * 128
-    tile_cols = _warp_tile_cols(wp, pallas_tile_rows)
-    wh = -(-(pallas_tile_rows + 2 * pallas_k + 2 + row_align)
-           // row_align) * row_align
-    hp_align = -(-h // row_align) * row_align
-    fits = hp_align >= wh and wp >= tile_cols + 256
-    if (
-        allow_pallas
-        and _pallas_usable(h, w)
-        and fits
-        and frames.ndim == 4
-        and frames.shape[-1] == 3
-    ):
-        from . import warp_accum_pallas
 
-        minv = jnp.linalg.inv(m3.astype(jnp.float32))
-        return warp_accum_pallas.warp_accum_rgb_pallas(
-            frames, minv, oks, border_value=border_value,
-            k=pallas_k, tile=(pallas_tile_rows, tile_cols),
-            quant_affine=not perspective,
-            interpret=_warp_interpret(),
-        )
-    if integer_src:
-        from . import color
+    def body(acc, xs):
+        frame, m, ok = xs
+        f = color.to_unit_f32(frame)
+        out = warp_frames_batch(
+            f[None], m[None], perspective=perspective,
+            border_value=border_value,
+        )[0]
+        return acc + jnp.where(ok, out, 0.0), None
 
-        frames = color.to_unit_f32(frames)
-    warped = warp_frames_batch(
-        frames, m3, perspective=perspective, border_value=border_value,
-        allow_pallas=allow_pallas, pallas_k=pallas_k,
-        pallas_tile_rows=pallas_tile_rows,
-    )
-    return jnp.sum(
-        warped * oks.astype(jnp.float32)[:, None, None, None], axis=0
-    )
+    acc0 = jnp.zeros(frames.shape[1:], jnp.float32)
+    acc, _ = jax.lax.scan(body, acc0, (frames, m3, oks))
+    return acc

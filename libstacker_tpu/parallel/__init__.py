@@ -1,5 +1,5 @@
 """Device-mesh scale-out (SURVEY.md §2c): data-parallel frame sharding
-with psum stacking over ICI, spatial row sharding with halo exchange,
+with psum stacking across devices, spatial row sharding with halo exchange,
 and multi-host (DCN) helpers.  The public pipelines reach this layer
 through their ``mesh=`` argument; the functions here are the building
 blocks for custom orchestration."""

@@ -2,20 +2,19 @@
 
 The reference's only parallelism is Rayon shared-memory data-parallelism
 over frames with a commutative sum-reduction (SURVEY.md §2c;
-src/lib.rs:188-335).  The TPU-native replacement is SPMD over a
-``jax.sharding.Mesh``:
+src/lib.rs:188-335).  Here it is SPMD over a ``jax.sharding.Mesh``:
 
 - **data axis** — the frame axis of the ``[N,H,W,C]`` burst tensor is
   sharded across chips; each chip aligns and warps its local frames and
-  the running-sum fold becomes a ``psum`` over ICI.
+  the running-sum fold becomes a ``psum`` across devices.
 - **spatial axis** — for very large frames, rows are sharded across a
   second mesh axis; conv-window overlap is satisfied by halo exchange
   (``ppermute``), the 2-D analogue of sequence/context parallelism
   (SURVEY.md §5 "long-context analogue").
 
-Everything here uses ``shard_map`` so collectives are explicit and ride
-ICI; no NCCL-style process groups exist (nothing to port: the reference
-has no distributed backend, SURVEY.md §2c).
+Everything here uses ``shard_map`` so collectives are explicit (XLA
+hands them to NCCL on GPUs); the reference has no distributed backend
+to port (SURVEY.md §2c).
 """
 
 from __future__ import annotations
@@ -38,6 +37,12 @@ try:
     shard_map = _shard_map_mod.shard_map if hasattr(_shard_map_mod, "shard_map") else _shard_map_mod
 except ImportError:  # pragma: no cover
     from jax.experimental.shard_map import shard_map  # type: ignore
+
+
+def _matmul3(a, b, c):
+    """``a @ b @ c`` of 3x3 warp matrices in full f32 (no TF32)."""
+    hi = jax.lax.Precision.HIGHEST
+    return jnp.matmul(jnp.matmul(a, b, precision=hi), c, precision=hi)
 
 
 def make_mesh(
@@ -78,9 +83,8 @@ def init_distributed(
     **kwargs,
 ) -> None:
     """Join (or bootstrap) a multi-host run: thin wrapper over
-    ``jax.distributed.initialize``.  On TPU pods the arguments are
-    auto-detected from the environment; on CPU/GPU pass coordinator
-    address, world size and rank explicitly."""
+    ``jax.distributed.initialize``.  Pass coordinator address, world
+    size and rank explicitly."""
     jax.distributed.initialize(
         coordinator_address=coordinator_address,
         num_processes=num_processes,
@@ -140,20 +144,13 @@ def ecc_stack_step(
     1. *prep* (:func:`_ecc_prep_program`): per-shard grey conversion,
        optional scale-down, octave pyramid build, template blur and the
        phase-correlation warm start;
-    2. *solve* (:func:`_ecc_solve_sharded`): the slab-driven batched
-       Gauss-Newton solve, mirroring the dense host driver
+    2. *solve* (:func:`_ecc_solve_sharded`): the batched Gauss-Newton
+       solve, mirroring the dense host driver
        (``ops.ecc.find_transform_ecc_batched``) level for level — the
-       same coarse-to-fine rho seeding, the same k-escalation ladder on
-       TPU, the same exact-XLA rescue of failed lanes, and the same
-       ``default_slab_iters`` program-length bound, so no single device
-       program can trip the TPU runtime's long-program watchdog even at
-       ``max_count=2500`` (the monolithic in-graph solve ran the whole
-       iteration budget as one program);
-    3. *stack* (:func:`_ecc_stack_program`): per-shard warp+accumulate
-       with the SAME host-side Pallas band dispatch the single-chip
-       pipelines use (``pallas_pick_config`` over the solved, fetched
-       warps), then ``psum`` over 'data' replaces the reference's
-       try_reduce (src/lib.rs:819-833).
+       same coarse-to-fine rho seeding, one device program per level;
+    3. *stack* (:func:`_ecc_stack_sharded`): per-shard warp+accumulate,
+       then ``psum`` over 'data' replaces the reference's try_reduce
+       (src/lib.rs:819-833).
 
     Returns (stacked_sum [H,W,3] f32 replicated, ok [N] bool numpy).
 
@@ -205,10 +202,8 @@ def ecc_stack_step(
 
     Every program is built once per (mesh, config) and wrapped in
     ``jax.jit`` — calling ``shard_map`` eagerly re-dispatches outside
-    the jit cache and, on the TPU backend, recompiles the whole module
-    on EVERY call (measured: 306 s per call at 4x240x320 vs 15 s once
-    under jit; the persistent compilation cache only hooks the jit
-    path).
+    the jit cache, and the persistent compilation cache only hooks the
+    jit path.
     """
     if stacking not in ("mean", "sigma_clip"):
         raise ValueError(
@@ -271,18 +266,16 @@ def _ecc_solve_sharded(
     grid).  Mirrors the dense host driver
     (``ops.ecc.find_transform_ecc_batched``) stage for stage so mesh
     on/off produces the same iterates: octave cascade with cross-scale
-    rho seeding, k-escalation ladder on the fused TPU kernel, exact-XLA
-    rescue for failed lanes, and ``default_slab_iters``-bounded device
-    programs (r4 VERDICT items 7+8).  All host decisions are made from
-    fully-replicated scalars/arrays, so every process of a multi-host
-    (DCN) run takes identical control-flow branches.
+    rho seeding and one solve program per level.
+    All host decisions are made from fully-replicated scalars/arrays,
+    so every process of a multi-host run takes identical control-flow
+    branches.
     """
     import os as _os
 
-    if mode is None:
-        mode = ecc_ops._ecc_mode_default()
-    if input_mask is not None and mode == "ic":
-        mode = "forward"  # same downgrade as the dense driver
+    mode = ecc_ops._check_mode(
+        ecc_ops._ecc_mode_default() if mode is None else mode
+    )
     n = frames_u8.shape[0]
     grid = (
         scale_hw if scale_hw is not None
@@ -344,8 +337,7 @@ def _ecc_solve_sharded(
             eps_oct, gauss_filt_size, mode, n,
         )[:3]
         # a failed/frozen octave lane's iterate is not a meaningful warm
-        # start — hand the finer level this level's own init (dense
-        # driver semantics via the rescue; here via explicit fallback)
+        # start — hand the finer level this level's own init
         base = init
         if base is None:
             base = np.tile(
@@ -388,16 +380,11 @@ def _drive_sharded_solve(
     mode: str,
     n: int,
 ):
-    """Drive one grid level's sharded solve to completion: bounded slab
-    programs with host-synced convergence flags, the k-escalation
-    ladder on TPU and the exact-XLA rescue — the sharded mirror of the
-    dense driver's ``drive`` loop.  Returns (m, rho, ok, iters) as
-    REPLICATED device arrays."""
-    import os as _os
-
+    """Drive one grid level's sharded solve to completion (one solve
+    program, re-dispatched while the host reads unconverged lanes) —
+    the sharded mirror of the dense driver's loop.  Returns (m, rho,
+    ok, iters) as REPLICATED device arrays."""
     h, w = int(templates_f.shape[1]), int(templates_f.shape[2])
-    ndata = mesh.shape["data"]
-    n_loc = n // ndata
     pre_mask = None
     if input_mask is not None:
         image_f, gx, gy, pre_mask = ecc_ops._ecc_prepare_input_masked_jit(
@@ -408,62 +395,27 @@ def _drive_sharded_solve(
             ref_grey, gauss_filt_size
         )
 
-    carry = _sharded_carry_init(
-        n, motion_type, mode, eps, warp_init, rho_seed
+    kernel = (
+        ecc_ops._kernel_ok(h, w) and tuple(image_f.shape[-2:]) == (h, w)
     )
-    m_init = carry[0]
-
-    use_pallas = (
-        ecc_ops._pallas_ok(h, w)
-        and tuple(image_f.shape[-2:]) == (h, w)
+    lazy = kernel and mode == "lazy"
+    carry = _sharded_carry_init(n, motion_type, lazy, eps, warp_init,
+                                rho_seed)
+    fn = _ecc_slab_program(
+        mesh, motion_type, num_iters, float(eps), None, kernel, mode,
+        pre_mask is not None, ecc_ops._lanes_per_group(h, w, kernel),
     )
-
-    def drive(carry, use_pallas: bool, warp_k: int = 7):
-        slab_iters = ecc_ops.default_slab_iters(
-            n_loc, h, w, use_pallas=use_pallas
-        )
-        fn = _ecc_slab_program(
-            mesh, motion_type, num_iters, float(eps), slab_iters,
-            use_pallas, warp_k, mode, pre_mask is not None,
-        )
-        disp = 1
-        while True:
-            for _ in range(disp):
-                args = (templates_f, image_f, gx, gy) + tuple(carry)
-                if pre_mask is not None:
-                    args = args + (pre_mask,)
-                out = fn(*args)
-                carry = out[:-2]
-                flags = out[-2:]
-            not_done, esc_pending = jax.device_get(
-                (flags[0], flags[1])
-            )
-            if int(not_done) == 0:
-                return carry, int(esc_pending) > 0
-            disp = min(disp * 2, 8)
-
-    if not use_pallas:
-        carry, _ = drive(carry, False)
-    else:
-        env_k = ecc_ops._ecc_warp_k()
-        ladder = (env_k,) if env_k is not None else ecc_ops._K_LADDER
-        for ki, k in enumerate(ladder):
-            carry, esc_pending = drive(carry, True, k)
-            if ki + 1 == len(ladder) or not esc_pending:
-                break
-            carry = _reactivate_sharded_jit(carry, float(eps))
-        # exact-XLA rescue of any failed lane (genuine ECC failures get
-        # the reference formulation's verdict; domain-escapes beyond
-        # the widest band get the unbounded gather path)
-        any_bad = int(jax.device_get(_count_bad_jit(carry[4])))
-        if any_bad:
-            if mode in ("ic", "lazy"):
-                carry = (_restore_init_jit(carry[4], carry[0], m_init),
-                         ) + tuple(carry[1:])
-            carry = _reactivate_sharded_jit(
-                carry, float(eps), all_bad=True
-            )
-            carry, _ = drive(carry, False)
+    disp = 1
+    while True:
+        for _ in range(disp):
+            args = (templates_f, image_f, gx, gy) + tuple(carry)
+            if pre_mask is not None:
+                args = args + (pre_mask,)
+            out = fn(*args)
+            carry, not_done = out[:-1], out[-1]
+        if int(jax.device_get(not_done)) == 0:
+            break
+        disp = min(disp * 2, 8)
 
     gather = _ecc_gather_program(mesh, 4)
     m, rho, ok, iters = gather(carry[0], carry[1], carry[4], carry[3])
@@ -526,19 +478,17 @@ def _ecc_slab_program(
     motion_type: MotionType,
     num_iters: int,
     eps: float,
-    slab_iters: int,
-    use_pallas: bool,
-    warp_k: int,
+    slab_iters: Optional[int],
+    kernel: bool,
     mode: str,
     has_mask: bool,
+    group_n: int,
 ):
-    """One bounded solve slab as a shard_map program: each shard
-    advances its local lanes by at most ``slab_iters`` Gauss-Newton
-    iterations (``ops.ecc._ecc_loop_batched`` — the exact same slab the
-    dense driver dispatches), then psums two replicated scalars the
-    host drive loop reads: the not-yet-converged lane count and the
-    domain-escalation-pending count."""
-    from ..ops.ecc import _MAX_SOLVE_LANES
+    """One solve slab as a shard_map program: each shard advances its
+    local lanes by at most ``slab_iters`` Gauss-Newton iterations (None:
+    to convergence; ``ops.ecc._ecc_loop_batched`` — the same slab the
+    dense driver dispatches, in lane groups of ``group_n``), then psums
+    the not-yet-converged lane count the host drive loop reads."""
 
     def local(tmpl_f, image_f, gx, gy, *rest):
         if has_mask:
@@ -546,15 +496,13 @@ def _ecc_slab_program(
         else:
             carry, pre_mask = rest, None
         n_loc = tmpl_f.shape[0]
-        # static lane-group chunking: the fused kernel's SMEM moment
-        # accumulator bounds one batched solve at _MAX_SOLVE_LANES
         new_parts = []
-        for s0 in range(0, n_loc, _MAX_SOLVE_LANES):
-            sub = tuple(c[s0 : s0 + _MAX_SOLVE_LANES] for c in carry)
+        for s0 in range(0, n_loc, group_n):
+            sub = tuple(c[s0 : s0 + group_n] for c in carry)
             new_parts.append(ecc_ops._ecc_loop_batched(
-                tmpl_f[s0 : s0 + _MAX_SOLVE_LANES], image_f, gx, gy,
+                tmpl_f[s0 : s0 + group_n], image_f, gx, gy,
                 sub, motion_type, num_iters, eps, slab_iters,
-                use_pallas, warp_k, mode, pre_mask,
+                kernel, mode, pre_mask,
             ))
         new_c = tuple(
             jnp.concatenate([p[i] for p in new_parts])
@@ -563,16 +511,13 @@ def _ecc_slab_program(
         m, rho, last_rho, it, ok = new_c[:5]
         done = (it >= num_iters) | (jnp.abs(rho - last_rho) < eps) | ~ok
         not_done = jax.lax.psum(jnp.sum(~done), "data")
-        esc_pending = jax.lax.psum(
-            jnp.sum(new_c[5] & ~new_c[4]), "data"
-        )
-        return new_c + (not_done, esc_pending)
+        return new_c + (not_done,)
 
-    n_carry = 8 if mode in ("ic", "lazy") else 6
+    n_carry = 7 if (kernel and mode == "lazy") else 5
     in_specs = (P("data"), P(), P(), P()) + tuple([P("data")] * n_carry)
     if has_mask:
         in_specs = in_specs + (P(),)
-    out_specs = tuple([P("data")] * n_carry) + (P(), P())
+    out_specs = tuple([P("data")] * n_carry) + (P(),)
     return jax.jit(shard_map(
         local,
         mesh=mesh,
@@ -582,7 +527,7 @@ def _ecc_slab_program(
     ))
 
 
-def _sharded_carry_init(n, motion_type, mode, eps, warp_init, rho_seed):
+def _sharded_carry_init(n, motion_type, lazy, eps, warp_init, rho_seed):
     """Fresh solve carry, mirroring the dense driver's init including
     the cross-scale rho seed semantics: seeded lanes start at
     (rho_seed, rho_seed - 2*eps) so the first iteration always runs
@@ -596,7 +541,7 @@ def _sharded_carry_init(n, motion_type, mode, eps, warp_init, rho_seed):
         )
     else:
         m = warp_init
-    if rho_seed is not None and eps > 0 and mode in ("forward", "lazy"):
+    if rho_seed is not None and eps > 0:
         rho, last_rho = _seed_rho_jit(rho_seed, float(eps))
     else:
         rho = np.full((n,), -1.0, np.float32)
@@ -607,9 +552,8 @@ def _sharded_carry_init(n, motion_type, mode, eps, warp_init, rho_seed):
         last_rho,
         np.zeros((n,), np.int32),
         np.ones((n,), bool),
-        np.zeros((n,), bool),
     )
-    if mode in ("ic", "lazy"):
+    if lazy:
         p = motion_type.num_params
         carry = carry + (
             np.zeros((n, p, p), np.float32),
@@ -648,26 +592,6 @@ def _where_ok_jit(ok, a, b):
     )
 
 
-@functools.partial(jax.jit, static_argnames=("eps", "all_bad"))
-def _reactivate_sharded_jit(carry, eps: float, all_bad: bool = False):
-    """Warm-start lanes for another drive pass: the escalated lanes
-    (esc & ~ok) by default, or EVERY failed lane for the rescue pass —
-    elementwise on the sharded carry (ops.ecc._reactivate_carry)."""
-    lane_mask = (carry[5] & ~carry[4]) if not all_bad else ~carry[4]
-    return ecc_ops._reactivate_carry(tuple(carry), eps, lane_mask)
-
-
-@jax.jit
-def _count_bad_jit(ok):
-    return jnp.sum(~ok)
-
-
-@jax.jit
-def _restore_init_jit(ok, m, m_init):
-    bad = ~ok
-    return jnp.where(bad[:, None, None], jnp.asarray(m_init, m.dtype), m)
-
-
 @functools.lru_cache(maxsize=64)
 def _ecc_gather_program(mesh: Mesh, nout: int):
     """all_gather ``nout`` lane-sharded arrays to replicated (tiny —
@@ -700,12 +624,9 @@ def _ecc_stack_sharded(
     output_scale: int = 1,
 ):
     """Stage 3 of the sharded step: adjust the solved warps for scale on
-    host (src/lib.rs:941-958), sanitise failed lanes to identity, pick
-    the Pallas kernel band with the SAME host dispatch the single-chip
-    pipelines use, and run the per-shard warp+accumulate / sigma-clip /
-    super-resolution program with a psum over 'data'."""
-    from ..ops import warp_batch
-
+    host (src/lib.rs:941-958), sanitise failed lanes to identity, and
+    run the per-shard warp+accumulate / sigma-clip / super-resolution
+    program with a psum over 'data'."""
     h, w = int(frames_u8.shape[1]), int(frames_u8.shape[2])
     perspective = motion_type == MotionType.Homography
     m = np.array(warps_np, np.float64, copy=True)
@@ -726,47 +647,27 @@ def _ecc_stack_sharded(
             m3[:, 2, 1] /= sy
     m3[~ok_np] = np.eye(3)  # NaN matrices must not reach linalg.inv
     m3f = m3.astype(np.float32)
-    kept = m3[ok_np] if ok_np.any() else m3[:0]
     if output_scale > 1:
-        from ..ops.stack import _sr_pick_config
-
-        cfg = _sr_pick_config(m3f, h, w, output_scale)
-        fn = _ecc_sr_stack_program(
-            mesh, int(output_scale), bool(perspective),
-            cfg if cfg is None else (int(cfg[0]), int(cfg[1])),
-        )
-        return fn(frames_u8, m3f, ok_np)
-    cfg = warp_batch.pallas_pick_config(kept, h, w)
-    allow = cfg is not None
-    k = cfg[0] if cfg else 7
-    tile_rows = cfg[1] if cfg else 128
-    if stacking == "sigma_clip":
+        fn = _ecc_sr_stack_program(mesh, int(output_scale), bool(perspective))
+    elif stacking == "sigma_clip":
         fn = _ecc_sigma_stack_program(
-            mesh, bool(perspective), float(sigma_kappa),
-            int(sigma_iters), allow, k, tile_rows,
+            mesh, bool(perspective), float(sigma_kappa), int(sigma_iters),
         )
     else:
-        fn = _ecc_mean_stack_program(
-            mesh, bool(perspective), allow, k, tile_rows
-        )
+        fn = _ecc_mean_stack_program(mesh, bool(perspective))
     return fn(frames_u8, m3f, ok_np)
 
 
 @functools.lru_cache(maxsize=64)
-def _ecc_mean_stack_program(
-    mesh: Mesh, perspective: bool, allow_pallas: bool, pallas_k: int,
-    tile_rows: int,
-):
-    """Per-shard fused warp+accumulate (RAW integer burst in, the
-    kernel widens in-VMEM) + psum over 'data' — the reference's
-    try_reduce (src/lib.rs:819-833)."""
+def _ecc_mean_stack_program(mesh: Mesh, perspective: bool):
+    """Per-shard warp+accumulate (RAW integer burst in, widened frame by
+    frame) + psum over 'data' — the reference's try_reduce
+    (src/lib.rs:819-833)."""
     from ..ops.warp_batch import warp_accumulate_rgb
 
     def local(frames_local, m3_local, oks_local):
         partial = warp_accumulate_rgb(
             frames_local, m3_local, oks_local, perspective=perspective,
-            allow_pallas=allow_pallas, pallas_k=pallas_k,
-            pallas_tile_rows=tile_rows,
         )
         return jax.lax.psum(partial, "data")
 
@@ -782,7 +683,6 @@ def _ecc_mean_stack_program(
 @functools.lru_cache(maxsize=64)
 def _ecc_sigma_stack_program(
     mesh: Mesh, perspective: bool, kappa: float, iters: int,
-    allow_pallas: bool, pallas_k: int, tile_rows: int,
 ):
     """Per-shard warp + distributed kappa-sigma clip (psum'd per-pixel
     moments; ops/stack.clip_iterate is the single source of truth)."""
@@ -792,11 +692,7 @@ def _ecc_sigma_stack_program(
     def local(frames_local, m3_local, oks_local):
         h, w = frames_local.shape[1], frames_local.shape[2]
         f32 = color.to_unit_f32(frames_local)
-        wf = warp_frames_batch(
-            f32, m3_local, perspective=perspective,
-            allow_pallas=allow_pallas, pallas_k=pallas_k,
-            pallas_tile_rows=tile_rows,
-        )
+        wf = warp_frames_batch(f32, m3_local, perspective=perspective)
         incl = (
             stack_ops._coverage(m3_local, h, w, perspective)
             & oks_local[:, None, None]
@@ -813,47 +709,32 @@ def _ecc_sigma_stack_program(
 
 
 @functools.lru_cache(maxsize=32)
-def _ecc_sr_stack_program(
-    mesh: Mesh, factor: int, perspective: bool, cfg,
-):
+def _ecc_sr_stack_program(mesh: Mesh, factor: int, perspective: bool):
     """Per-shard super-resolution deposit + psum'd fine-grid weight /
     value accumulators (r4 VERDICT item 6): each shard deposits its
     local frames (static lane chunks bound the [C,fH,fW,3] transients),
     the accumulators psum over 'data', and the finalisation
     (weight-normalised shift-and-add; ops/stack.py semantics) runs on
-    the replicated sums.  ``cfg`` = (pallas_k, tile_rows) for the fused
-    per-phase kernel path, or None for the XLA gather deposit."""
+    the replicated sums."""
     from ..ops import stack as stack_ops
 
     kernel_sigma = 0.3  # super_res_stack's default (no hole fallback)
 
     def local(frames_local, m3_local, oks_local):
         n_loc = frames_local.shape[0]
-        chunk = 4 if cfg is not None else 2
         acc = None
-        for s0 in range(0, n_loc, chunk):
-            sl = slice(s0, s0 + chunk)
-            if cfg is not None:
-                part = stack_ops._sr_kernel_chunk(
-                    frames_local[sl], m3_local[sl], oks_local[sl],
-                    factor=factor, kernel_sigma=kernel_sigma,
-                    perspective=perspective, pallas_k=cfg[0],
-                    pallas_tile_rows=cfg[1],
-                )
-            else:
-                part = stack_ops._sr_chunk(
-                    frames_local[sl], m3_local[sl], oks_local[sl],
-                    factor=factor, kernel_sigma=kernel_sigma,
-                    perspective=perspective, with_fallback=False,
-                )
+        for s0 in range(0, n_loc, 2):
+            sl = slice(s0, s0 + 2)
+            part = stack_ops._sr_chunk(
+                frames_local[sl], m3_local[sl], oks_local[sl],
+                factor=factor, kernel_sigma=kernel_sigma,
+                perspective=perspective, with_fallback=False,
+            )
             acc = part if acc is None else tuple(
                 a + p for a, p in zip(acc, part)
             )
         av = jax.lax.psum(acc[0], "data")
         aw = jax.lax.psum(acc[1], "data")
-        if cfg is not None:
-            out_p = av / jnp.maximum(aw, 1e-6)[..., None]
-            return stack_ops._sr_interleave_phases(out_p, factor)
         return av / jnp.maximum(aw, 1e-6)[..., None]
 
     return jax.jit(shard_map(
@@ -928,12 +809,9 @@ def keypoint_stack_step(
     Per shard: batched ORB on local frames, Hamming 2-NN against the
     replicated reference descriptors, ratio/sort/keep, vectorised
     RANSAC (per-frame fold_in keys keep lanes independent of the mesh
-    layout), then the stage-3 warp.  RANSAC homographies are unbounded,
-    so the Pallas warp is gated by an IN-GRAPH residual-band check: the
-    shard takes the fused-kernel path only when every kept lane sits in
-    the kernel's widest band, else the exact XLA path — identical drop
-    semantics to the single-chip pipeline either way.  ``psum`` over
-    'data' replaces the Rayon fold.
+    layout), then the stage-3 warp — identical drop semantics to the
+    single-chip pipeline.  ``psum`` over 'data' replaces the Rayon
+    fold.
 
     Returns (stacked_sum [H,W,3] f32 replicated, ok [N] bool); divide
     by ``ok.sum()`` for the mean like keypoint_match_arrays does.
@@ -941,9 +819,7 @@ def keypoint_stack_step(
     mode (the first return is then the FINAL image — don't divide).
     ``output_scale`` > 1 (super-resolution, r4 VERDICT item 6)
     distributes the shift-and-add deposit: each shard deposits its
-    local frames on the fine grid (the XLA gather formulation of
-    ops/stack._sr_chunk — RANSAC homographies are unbounded, so no
-    static kernel-band dispatch is possible in-graph) and the
+    local frames on the fine grid (ops/stack._sr_chunk) and the
     weight/value accumulators psum over 'data'; the first return is
     then the FINAL [f*H, f*W, 3] image.
 
@@ -957,18 +833,14 @@ def keypoint_stack_step(
       detection grid, replicated (prepare with
       ``models.keypoint._prepare_det_mask``).
     - ``border_mode`` / ``border_value``: the stage-3 warp's border
-      (KeyPointMatchParameters fields).  constant/transparent run the
-      fused fast path; index-mapping modes (replicate/reflect/wrap)
-      take the exact XLA warp in-graph (the apron trick needs a
-      host-side data-dependent pad).
+      (KeyPointMatchParameters fields).
     - ``lane_valid`` ([N] bool): padding mask, as in
       :func:`ecc_stack_step`.
     - ``return_extras``: also return (match_counts [N],
       inlier_counts [N]).
 
     Built once per (mesh, config) and jit-wrapped, like
-    :func:`ecc_stack_step` (eager shard_map recompiles per call on the
-    TPU backend — the un-jitted keypoint module took >25 min there).
+    :func:`ecc_stack_step`.
     """
     from ..ops import warp as warp_ops
 
@@ -1187,15 +1059,7 @@ def _keypoint_solve_program(
 
 
 @functools.lru_cache(maxsize=32)
-def _stream_moments_program(
-    mesh: Mesh,
-    perspective: bool,
-    allow_pallas: bool,
-    pallas_k: int,
-    tile_rows: int,
-    fused: bool,
-    clipped: bool,
-):
+def _stream_moments_program(mesh: Mesh, perspective: bool, clipped: bool):
     """One sharded moment sweep over a streaming chunk (r4 VERDICT item
     3, stream x mesh with sigma-clip): each shard re-warps its local
     lanes and the per-pixel moment accumulators psum over 'data' —
@@ -1210,8 +1074,7 @@ def _stream_moments_program(
         )
         out = fn(
             frames_local, mats_local, oks_local, *extra,
-            perspective=perspective, allow_pallas=allow_pallas,
-            pallas_k=pallas_k, pallas_tile_rows=tile_rows, fused=fused,
+            perspective=perspective,
         )
         return tuple(jax.lax.psum(o, "data") for o in out)
 
@@ -1250,7 +1113,6 @@ def _keypoint_step_program(
     output_scale: int = 1,
 ):
     """Build + jit the sharded keypoint step for one static config."""
-    from ..ops import warp_pallas
     from ..ops import stack as stack_ops
     from ..ops.warp_batch import warp_accumulate_rgb, warp_frames_batch
     from ..ops import warp as warp_ops
@@ -1271,9 +1133,6 @@ def _keypoint_step_program(
         hs_safe, oks_l, mc_l, ic_l = solve_local(
             frames_local, rfeats, valid_local, det_mask
         )
-        minv = jnp.linalg.inv(hs_safe)
-        in_band = warp_pallas.residual_domain_ok(minv, h, w, k=7, xp=jnp)
-        fast_ok = jnp.all(in_band | ~oks_l)
 
         if output_scale > 1:
             # distributed super-resolution deposit (r4 VERDICT item 6):
@@ -1295,56 +1154,27 @@ def _keypoint_step_program(
             aw = jax.lax.psum(acc[1], "data")
             total = av / jnp.maximum(aw, 1e-6)[..., None]
         elif stacking == "sigma_clip":
-
-            def fast_wf(args):
-                f32_, hs_ = args
-                return warp_frames_batch(
-                    f32_, hs_, perspective=True, border_value=bv,
-                    allow_pallas=True, pallas_k=7,
-                )
-
-            def exact_wf(args):
-                f32_, hs_ = args
-                return warp_frames_batch(
-                    f32_, hs_, perspective=True, border_value=bv,
-                    allow_pallas=False,
-                )
-
-            wf = jax.lax.cond(fast_ok, fast_wf, exact_wf, (f32, hs_safe))
+            wf = warp_frames_batch(
+                f32, hs_safe, perspective=True, border_value=bv,
+            )
             incl = (
                 stack_ops._coverage(hs_safe, h, w, True)
                 & oks_l[:, None, None]
             )
             total = _sharded_sigma_total(wf, incl, sigma_kappa, sigma_iters)
         elif border not in ("constant", "transparent"):
-            # index-mapping border modes: exact XLA warp in-graph (no
-            # host-side apron available under shard_map), masked sum —
-            # identical semantics to the single-chip exact path
+            # index-mapping border modes: masked sum of the warped
+            # frames — identical semantics to the single-chip path
             warped = warp_frames_batch(
                 f32, hs_safe, perspective=True, border_value=bv,
-                allow_pallas=False, border_mode=border_mode,
+                border_mode=border_mode,
             )
             valid = oks_l.astype(jnp.float32)[:, None, None, None]
             total = jax.lax.psum(jnp.sum(warped * valid, axis=0), "data")
         else:
-
-            def fast_branch(args):
-                frames_, hs_, oks_ = args
-                return warp_accumulate_rgb(
-                    frames_, hs_, oks_, perspective=True, border_value=bv,
-                    allow_pallas=True, pallas_k=7,
-                )
-
-            def exact_branch(args):
-                frames_, hs_, oks_ = args
-                return warp_accumulate_rgb(
-                    frames_, hs_, oks_, perspective=True, border_value=bv,
-                    allow_pallas=False,
-                )
-
-            partial = jax.lax.cond(
-                fast_ok, fast_branch, exact_branch,
-                (frames_local, hs_safe, oks_l),
+            partial = warp_accumulate_rgb(
+                frames_local, hs_safe, oks_l, perspective=True,
+                border_value=bv,
             )
             total = jax.lax.psum(partial, "data")
         ok = jax.lax.all_gather(oks_l, "data", tiled=True)
@@ -1405,7 +1235,7 @@ def ecc_stack_step_spatial(
       shard contributes ``wy[:, own_rows] @ grey_local`` and a psum
       over 'spatial' reproduces the dense resize exactly (same
       fixed-point rounding applied after the column pass);
-    - batched ECC on the small grid (in-graph ladder solve, replicated
+    - batched ECC on the small grid (the in-graph solve, replicated
       across 'spatial' members — the small grid is tiny);
     - warp upscaling (src/lib.rs:941-958 math) and the full-res warp
       via ppermute halo exchange: each shard resamples its own row band
@@ -1503,7 +1333,10 @@ def _ecc_spatial_program(
         small_cur = small_grey(grey_cur)
         small_ref = small_grey(grey_ref)
         n_loc = small_cur.shape[0]
-        from ..ops.ecc import _MAX_SOLVE_LANES
+        hs_, ws_ = small_cur.shape[1], small_cur.shape[2]
+        group_n = ecc_ops._lanes_per_group(
+            hs_, ws_, ecc_ops._kernel_ok(hs_, ws_)
+        )
 
         warp_init = None
         if phase_init:
@@ -1514,15 +1347,15 @@ def _ecc_spatial_program(
             )
         parts = [
             ecc_ops.find_transform_ecc_batched_graph(
-                small_cur[s0 : s0 + _MAX_SOLVE_LANES], small_ref,
+                small_cur[s0 : s0 + group_n], small_ref,
                 motion_type=motion_type, num_iters=num_iters, eps=eps,
                 gauss_filt_size=gauss_filt_size,
                 warp_init=(
                     None if warp_init is None
-                    else warp_init[s0 : s0 + _MAX_SOLVE_LANES]
+                    else warp_init[s0 : s0 + group_n]
                 ),
             )
-            for s0 in range(0, n_loc, _MAX_SOLVE_LANES)
+            for s0 in range(0, n_loc, group_n)
         ]
         warps = jnp.concatenate([p.warp_matrix for p in parts])
         res_ok = jnp.concatenate([p.ok for p in parts])
@@ -1570,7 +1403,7 @@ def _ecc_spatial_program(
         ).at[1, 2].set(-(row0 - halo))
 
         def warp_one(ext_f, mi):
-            m_local = shift_src @ mi @ shift_out
+            m_local = _matmul3(shift_src, mi, shift_out)
             return warp.warp_perspective(
                 ext_f, m_local, (h_loc, w), border_mode="constant",
                 border_value=0.0, inverse_map=True,
@@ -1662,7 +1495,7 @@ def _warp_rows_program(mesh: Mesh, halo: int, h: int, w: int):
             [[1.0, 0.0, 0.0], [0.0, 1.0, -(row0 - halo)], [0.0, 0.0, 1.0]],
             jnp.float32,
         )  # global src coords -> strip coords
-        m_local = shift_src @ minv @ shift_out
+        m_local = _matmul3(shift_src, minv, shift_out)
         out = warp.warp_perspective(
             ext, m_local, (h_loc, w), border_mode="constant",
             border_value=0.0, inverse_map=True,

@@ -186,11 +186,8 @@ class EccMatchParameters:
     #: (bit-faithful quantities); 'lazy' = forward linearisation with
     #: the Jacobian Gram computed once per frame and carried (30 vs 66
     #: per-iteration kernel reductions for homography, same fixed
-    #: point); 'ic' = inverse-compositional (template-side Jacobian,
-    #: cheapest sweeps, but biased on aliasing-prone resampled content
-    #: — diverging lanes finish on the exact forward rescue).
-    #: Beyond-reference capabilities; the CPU/XLA fallback always runs
-    #: the exact forward formulation.
+    #: point; beyond-reference, fused GPU kernel only — the XLA path
+    #: always runs the exact forward formulation).
     solver: str = "forward"
     #: Stacking estimator: "mean" (reference semantics, src/lib.rs:
     #: 807-843) or "sigma_clip" — per-pixel kappa-sigma outlier
@@ -234,10 +231,11 @@ class EccMatchParameters:
                 f"coarse_levels must be an int in 0..5, got "
                 f"{self.coarse_levels!r}"
             )
-        if self.solver not in ("forward", "lazy", "ic"):
+        if self.solver not in ("forward", "lazy"):
             raise InvalidParamsError(
-                f"solver must be 'forward', 'lazy' or 'ic', "
-                f"got {self.solver!r}"
+                f"solver must be 'forward' or 'lazy', got {self.solver!r}"
+                + (" (the inverse-compositional solver was removed)"
+                   if self.solver == "ic" else "")
             )
         _validate_stacking(self.stacking, self.sigma_kappa, self.sigma_iters,
                            getattr(self, "output_scale", 1))

@@ -1,58 +1,45 @@
 """Persistent XLA compilation cache helper.
 
-The Mosaic/XLA compile tail for the 4K kernels runs tens of seconds on
-a remote TPU; the persistent cache makes every later process start
-warm.  Applications opt in with one call (the example CLI and bench.py
-do) — the library never mutates global JAX config on import.
+Applications opt in with one call (the example CLI, bench.py and
+chip_smoke.py do) — the library never mutates global JAX config on
+import.  The cache lives where ``JAX_COMPILATION_CACHE_DIR`` says when
+it is set (JAX reads that variable itself), and otherwise at the fixed
+``<repo>/.jax_cache``: the path is part of the cache key, so a
+directory that moves never hits.
 """
 
 from __future__ import annotations
 
 import os
 
-# Default INSIDE the repo workspace, not /tmp: /tmp is wiped between
-# driver/CI rounds (measured — every r3 bench run recompiled the full
-# 4K program population cold, warmup 63.7 s vs ~38 s warm), while the
-# workspace persists.  Falls back to /tmp when the package is installed
-# somewhere read-only.
-_REPO_DIR = os.path.join(
+REPO_CACHE_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(
         __file__
     )))),
     ".jax_cache",
 )
-_DEFAULT_DIR = os.environ.get(
-    "LIBSTACKER_CACHE_DIR",
-    _REPO_DIR if os.access(os.path.dirname(_REPO_DIR), os.W_OK)
-    else "/tmp/libstacker_jax_cache",
-)
 
 
-def enable_compilation_cache(path: str = _DEFAULT_DIR) -> str:
-    """Point JAX's persistent compilation cache at ``path`` (created on
-    demand).  Safe to call more than once; returns the directory (or
-    "" when the cache stays off).
+def cache_dir() -> str:
+    """The directory the persistent cache uses."""
+    return os.environ.get("JAX_COMPILATION_CACHE_DIR") or REPO_CACHE_DIR
 
-    TPU-ONLY: serialising some CPU-backend executables SEGFAULTS
-    inside ``jax.compilation_cache.put_executable_and_time`` (observed
-    2026-08-20 under pytest — a CLI test enabled the cache
-    process-wide and a later CPU pipeline test crashed the whole
-    suite).  CPU runs compile in seconds anyway; the cache's job is
-    the multi-minute Mosaic/XLA TPU tail."""
+
+def enable_compilation_cache() -> str:
+    """Turn on JAX's persistent compilation cache on a GPU.  Safe to call
+    more than once; returns the directory, or "" when the cache stays
+    off.
+
+    GPU only: serialising some CPU-backend executables crashed inside
+    ``jax.compilation_cache.put_executable_and_time`` under pytest, and
+    CPU programs compile in seconds anyway."""
     import jax
 
-    try:
-        backend = jax.default_backend()
-    except Exception:  # pragma: no cover - no backend at all
-        backend = None
-    if backend != "tpu":
+    if jax.default_backend() != "gpu":
         return ""
-    os.environ.setdefault("JAX_COMPILATION_CACHE_DIR", path)
-    jax.config.update(
-        "jax_compilation_cache_dir", os.environ["JAX_COMPILATION_CACHE_DIR"]
-    )
-    # cache even fast-compiling programs: the bench/CLI population is
-    # dozens of small jits whose 0.2-0.9 s compiles add up to a
-    # noticeable cold tail on a 1-core host
+    if not os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        jax.config.update("jax_compilation_cache_dir", REPO_CACHE_DIR)
+    # cache even fast-compiling programs: a pipeline is dozens of small
+    # jits whose sub-second compiles add up
     jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.1)
-    return os.environ["JAX_COMPILATION_CACHE_DIR"]
+    return cache_dir()

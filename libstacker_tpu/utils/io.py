@@ -2,7 +2,7 @@
 
 The reference delegates decode to OpenCV ``imgcodecs::imread``
 (``src/utils.rs:111-117``, ``read_grey_and_f32`` at ``src/utils.rs:128-144``).
-Decode is not a TPU job (SURVEY.md N16): we decode on host (PIL) with a
+Decode is not an accelerator job (SURVEY.md N16): we decode on host (PIL) with a
 thread pool standing in for the Rayon fan-out, then ship one batched
 ``[N,H,W,C] uint8`` tensor to device.  When the optional native C++
 loader is built (``native/``), it transparently replaces the PIL path.
@@ -215,8 +215,8 @@ def pad_chunk(
 ) -> np.ndarray:
     """Pad a final partial chunk to ``chunk_size`` lanes — every chunk
     then has one static shape, so the jitted grey/solve/warp programs
-    compile exactly once per burst geometry instead of recompiling
-    (multi-minute on TPU) for the odd tail.
+    compile exactly once per burst geometry instead of recompiling for
+    the odd tail.
 
     ``fill`` (default: repeat the last frame) chooses the pad content;
     the ECC stream passes the REFERENCE frame so pad lanes solve the

@@ -1,6 +1,6 @@
 // Native data loader for libstacker_tpu.
 //
-// TPU-native counterpart of the reference's decode path: the Rust crate
+// Host counterpart of the reference's decode path: the Rust crate
 // delegates image IO to OpenCV imgcodecs (C++) and fans file decodes out
 // over Rayon threads (reference src/utils.rs:111-144, src/lib.rs:188).
 // Here: libjpeg/libpng decode on a std::thread pool, writing RGB8 frames

@@ -124,15 +124,16 @@ def test_ecc_batched_matches_single():
 
 
 def test_ecc_lane_chunking(monkeypatch):
-    """Bursts beyond _MAX_SOLVE_LANES split into host-level lane groups
-    (SMEM accumulator bound); results must equal the unchunked solve."""
+    """Bursts beyond the memory-derived lane-group size
+    (ops.ecc._lanes_per_group) split into host-level lane groups;
+    results must equal the unchunked solve."""
     ref, cur1 = _make_pair(MotionType.Translation, seed=5)
     batch = jnp.stack([jnp.asarray(cur1)] * 6)
     full = ecc_ops.find_transform_ecc_batched(
         batch, jnp.asarray(ref), motion_type=MotionType.Translation,
         num_iters=20, eps=1e-4, gauss_filt_size=5,
     )
-    monkeypatch.setattr(ecc_ops, "_MAX_SOLVE_LANES", 4)
+    monkeypatch.setattr(ecc_ops, "_lanes_per_group", lambda h, w, k: 4)
     chunked = ecc_ops.find_transform_ecc_batched(
         batch, jnp.asarray(ref), motion_type=MotionType.Translation,
         num_iters=20, eps=1e-4, gauss_filt_size=5,
@@ -286,18 +287,17 @@ def test_rho_init_cross_scale_seed_stops_after_one_iteration():
 
 
 def test_solve_octave_nosync_empty_lane_set():
-    """Regression (r3 advisor, high): the nosync octave driver must
-    mirror the main entry's n==0 guard — a 1-frame burst's frames[1:]
-    with coarse_levels>0 on the Pallas path previously hit
-    jnp.concatenate([])."""
+    """Regression: the octave solves of a coarse-to-fine solve must keep
+    the main entry's n==0 guard — a 1-frame burst's frames[1:] with
+    coarse_levels>0 once hit jnp.concatenate([])."""
     for mt, r in [(MotionType.Translation, 2), (MotionType.Homography, 3)]:
-        wm, rho, ok = ecc_ops._solve_octave_nosync(
+        res = ecc_ops.find_transform_ecc_batched(
             jnp.zeros((0, 160, 384), jnp.float32),
             jnp.zeros((160, 384), jnp.float32),
-            mt, 10, 1e-4, 5, None, "forward", None,
+            mt, 10, 1e-4, 5, coarse_levels=1,
         )
-        assert wm.shape == (0, r, 3)
-        assert rho.shape == (0,) and ok.shape == (0,)
+        assert res.warp_matrix.shape == (0, r, 3)
+        assert res.rho.shape == (0,) and res.ok.shape == (0,)
 
 
 def test_coarse_rho_seed_cross_scale_accuracy(monkeypatch):

@@ -294,7 +294,7 @@ def test_masked_kernel_moments_match_xla_fields(motion):
     masked branch's moments (interpret mode)."""
     import jax.numpy as jnp
     from libstacker_tpu.ops import ecc as ecc_ops
-    from libstacker_tpu.ops import ecc_pallas, filters
+    from libstacker_tpu.ops import ecc_triton
 
     rng = np.random.default_rng(17)
     h, w = 192, 512
@@ -321,10 +321,10 @@ def test_masked_kernel_moments_match_xla_fields(motion):
 
     srcs = jnp.stack([image_f, gx, gy, pre])
     got = np.asarray(
-        ecc_pallas.ecc_iteration_moments(
+        ecc_triton.ecc_iteration_moments(
             srcs, jnp.asarray(tmpl)[None], jnp.asarray(m3)[None],
-            motion_type=motion, quant_affine=not perspective,
-            interpret=True,
+            jnp.ones((1,), bool), motion_type=motion,
+            quant_affine=not perspective, interpret=True,
         )
     )[0]
     want = _masked_reference_moments(
@@ -332,7 +332,7 @@ def test_masked_kernel_moments_match_xla_fields(motion):
     )
     assert got.shape == want.shape
     # stats moments (incl. the mask pixel count) agree to f32 reduction
-    # order, like test_ecc_pallas.test_moments_match_xla_fields
+    # order, like test_ecc_kernel.test_moments_match_xla_fields
     np.testing.assert_allclose(got[:6], want[:6], rtol=1e-5, atol=1e-2)
     # Jacobian moments: the kernel and XLA compute source coords with
     # different f32 op orders, so a handful of pixels on exact rounding
@@ -344,7 +344,7 @@ def test_masked_kernel_moments_match_xla_fields(motion):
     np.testing.assert_allclose(got, want, rtol=8e-2, atol=5e-2)
 
 
-def test_masked_fused_solve_matches_xla(monkeypatch):
+def test_masked_fused_solve_matches_xla(ecc_kernel_interpret):
     """End-to-end masked solve through the fused kernel (interpret
     mode) converges to the XLA masked path's warp."""
     import jax.numpy as jnp
@@ -363,11 +363,10 @@ def test_masked_fused_solve_matches_xla(monkeypatch):
         motion_type=MotionType.Translation, num_iters=50, eps=1e-5,
         gauss_filt_size=5, input_mask=jnp.asarray(mask),
     )
-    res_xla = ecc_ops.find_transform_ecc(
-        jnp.asarray(cur), jnp.asarray(ref), **kw
-    )
-    monkeypatch.setenv("LIBSTACKER_FORCE_PALLAS", "1")
-    monkeypatch.setenv("LIBSTACKER_ECC_INTERPRET", "1")
+    with ecc_kernel_interpret.off():
+        res_xla = ecc_ops.find_transform_ecc(
+            jnp.asarray(cur), jnp.asarray(ref), **kw
+        )
     res_k = ecc_ops.find_transform_ecc(
         jnp.asarray(cur), jnp.asarray(ref), **kw
     )
@@ -380,13 +379,12 @@ def test_masked_fused_solve_matches_xla(monkeypatch):
 
 
 def test_masked_kernel_moments_nonaligned_size():
-    """Masked moments on a NON-(8,128)-aligned image: the zero-padded
-    mask plane and the ragged-tile valid factor must keep padding out
-    of every sum (regression class: the r2 warp kernel corrupted
-    non-aligned sizes)."""
+    """Masked moments on an image whose pixel count is not a multiple of
+    the kernel's block: the ragged last block's invalid pixels must
+    stay out of every sum."""
     import jax.numpy as jnp
     from libstacker_tpu.ops import ecc as ecc_ops
-    from libstacker_tpu.ops import ecc_pallas
+    from libstacker_tpu.ops import ecc_triton
 
     rng = np.random.default_rng(29)
     h, w = 161, 400
@@ -407,10 +405,10 @@ def test_masked_kernel_moments_nonaligned_size():
     )
     srcs = jnp.stack([image_f, gx, gy, pre])
     got = np.asarray(
-        ecc_pallas.ecc_iteration_moments(
+        ecc_triton.ecc_iteration_moments(
             srcs, jnp.asarray(tmpl)[None], jnp.asarray(m3)[None],
-            motion_type=MotionType.Translation, quant_affine=True,
-            interpret=True,
+            jnp.ones((1,), bool), motion_type=MotionType.Translation,
+            quant_affine=True, interpret=True,
         )
     )[0]
     want = _masked_reference_moments(

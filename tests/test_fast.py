@@ -47,43 +47,6 @@ def test_fast_no_nms_superset(rng):
     assert cv_set == our_set
 
 
-def test_fast_pallas_matches_xla(monkeypatch):
-    """The one-pass fused FAST kernel (ops/fast_pallas, interpret mode)
-    is bit-identical to the dense XLA formulation + post-NMS
-    edge_threshold filter, including the vmap (natively batched)
-    path."""
-    import jax
-    import jax.numpy as jnp
-
-    from libstacker_tpu.ops import fast_pallas
-
-    monkeypatch.setenv("LIBSTACKER_FAST_INTERPRET", "1")
-    rng = np.random.default_rng(47)  # local: keep shared stream unshifted
-    for h, w in [(192, 512), (97, 131)]:
-        img = cv2.GaussianBlur(
-            rng.integers(0, 256, (h, w), np.uint8), (5, 5), 1.5
-        )
-        mask, score = fast.fast_detect(jnp.asarray(img), 20)
-        want = np.asarray(jnp.where(mask, score, 0.0))
-        got = np.asarray(
-            fast_pallas.fast_scores_batched(
-                jnp.asarray(img)[None], 20, 0, interpret=True
-            )
-        )[0]
-        np.testing.assert_array_equal(got, want)
-        # ORB edge_threshold band applied AFTER NMS (runByImageBorder)
-        b = 31
-        ys, xs = np.mgrid[0:h, 0:w]
-        bok = (ys >= b) & (ys < h - b) & (xs >= b) & (xs < w - b)
-        want_b = np.where(bok, want, 0.0)
-        got_b = np.asarray(
-            jax.vmap(lambda x: fast_pallas.fast_scores(x, 20, b))(
-                jnp.asarray(img)[None]
-            )
-        )[0]
-        np.testing.assert_array_equal(got_b, want_b)
-
-
 def test_arc_tree_2stage_bit_identical(monkeypatch):
     """LIBSTACKER_FAST_TREE=2stage (hardware A/B knob for the arc-min
     association) is bit-identical to the default log-doubling tree —

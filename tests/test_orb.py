@@ -100,3 +100,61 @@ def test_orb_batched_vmap(textured):
     np.testing.assert_array_equal(
         np.asarray(feats.descriptors[0]), np.asarray(feats.descriptors[1])
     )
+
+
+def _numpy_patches(img, ys, xs, radius):
+    h, w = img.shape
+    side = 2 * radius + 1
+    y0 = np.clip(ys - radius, 0, h - side)
+    x0 = np.clip(xs - radius, 0, w - side)
+    offs = np.arange(side)
+    return img[
+        y0[:, None, None] + offs[None, :, None],
+        x0[:, None, None] + offs[None, None, :],
+    ]
+
+
+@pytest.mark.parametrize("radius", [orb.PATCH_RADIUS, orb.BLUR_RADIUS])
+def test_extract_patches_interior(radius):
+    """Keypoint patches are the image neighbourhoods, exactly."""
+    rng = np.random.default_rng(61)
+    img = rng.random((97, 131)).astype(np.float32) * 255.0
+    ys = rng.integers(31, 97 - 31, 40).astype(np.int32)
+    xs = rng.integers(31, 131 - 31, 40).astype(np.int32)
+    got = np.asarray(orb.extract_patches(
+        jnp.asarray(img), jnp.asarray(ys), jnp.asarray(xs), radius=radius
+    ))
+    np.testing.assert_array_equal(got, _numpy_patches(img, ys, xs, radius))
+
+
+def test_extract_patches_clamped_edges():
+    """Centres nearer than the radius to a border shift the patch
+    ORIGIN inward (never a partial patch)."""
+    rng = np.random.default_rng(62)
+    img = rng.random((97, 131)).astype(np.float32)
+    ys = np.asarray([0, 5, 96, 50], np.int32)
+    xs = np.asarray([0, 130, 3, 120], np.int32)
+    got = np.asarray(orb.extract_patches(
+        jnp.asarray(img), jnp.asarray(ys), jnp.asarray(xs)
+    ))
+    np.testing.assert_array_equal(
+        got, _numpy_patches(img, ys, xs, orb.PATCH_RADIUS)
+    )
+
+
+def test_extract_patches_vmap():
+    """The ORB pipeline vmaps over frames: batched extraction equals
+    per-frame extraction."""
+    import jax
+
+    rng = np.random.default_rng(63)
+    imgs = rng.random((2, 97, 131)).astype(np.float32)
+    ys = rng.integers(31, 66, (2, 16)).astype(np.int32)
+    xs = rng.integers(31, 100, (2, 16)).astype(np.int32)
+    got = np.asarray(jax.vmap(orb.extract_patches)(
+        jnp.asarray(imgs), jnp.asarray(ys), jnp.asarray(xs)
+    ))
+    for i in range(2):
+        np.testing.assert_array_equal(
+            got[i], _numpy_patches(imgs[i], ys[i], xs[i], orb.PATCH_RADIUS)
+        )

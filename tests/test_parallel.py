@@ -175,12 +175,12 @@ def test_spatial_end_to_end_matches_dense():
 
 def test_sharded_flops_scale_with_data_axis(burst):
     """Compile-level scaling proof on the virtual mesh (wall-clock can't
-    scale on one physical core): per-device FLOPs of the sharded step's
-    two heavy programs — the slab-driven solve
-    (pmesh._ecc_slab_program, r5 structure) and the stacking warp
-    (pmesh._ecc_mean_stack_program) — must be <= ~1/3 of their 1-device
-    counterparts' (perfect would be 1/4 on data=4; the psum and the
-    replicated image-side operands add overhead)."""
+    scale on one physical core): per-device FLOPs of the slab-driven
+    solve (pmesh._ecc_slab_program) and per-device argument bytes of
+    the stacking warp (pmesh._ecc_mean_stack_program, a scan over its
+    local frames, whose loop body cost_analysis counts once) must be
+    <= ~1/3 of their 1-device counterparts' (perfect would be 1/4 on
+    data=4; the psum and the replicated operands add overhead)."""
     from libstacker_tpu.ops import ecc as ecc_ops
 
     n = burst.shape[0]
@@ -188,7 +188,7 @@ def test_sharded_flops_scale_with_data_axis(burst):
     image_f, gx, gy = ecc_ops._ecc_prepare_input_jit(ref_grey, 5)
     tmpl_f = jnp.broadcast_to(image_f[None], (n,) + image_f.shape)
     carry = pmesh._sharded_carry_init(
-        n, MotionType.Translation, "forward", 1e-3, None, None
+        n, MotionType.Translation, False, 1e-3, None, None
     )
     mats = np.tile(np.eye(3, dtype=np.float32)[None], (n, 1, 1))
     oks = np.ones(n, bool)
@@ -201,16 +201,16 @@ def test_sharded_flops_scale_with_data_axis(burst):
 
     def cost(mesh):
         slab = pmesh._ecc_slab_program(
-            mesh, MotionType.Translation, 4, 1e-3, 4, False, 7,
-            "forward", False,
+            mesh, MotionType.Translation, 4, 1e-3, 4, False, "forward",
+            False, n,
         )
         solve = flops(
             slab.lower(tmpl_f, image_f, gx, gy, *carry).compile()
         )
-        stackp = pmesh._ecc_mean_stack_program(mesh, False, False, 7, 128)
-        stack = flops(
-            stackp.lower(jnp.asarray(burst), mats, oks).compile()
-        )
+        stackp = pmesh._ecc_mean_stack_program(mesh, False)
+        stack = stackp.lower(
+            jnp.asarray(burst), mats, oks
+        ).compile().memory_analysis().argument_size_in_bytes
         return solve, stack
 
     m1 = pmesh.make_mesh(jax.devices()[:1], data=1, spatial=1)
@@ -227,8 +227,7 @@ def test_sharded_slab_program_is_bounded(burst):
     the sharded solve-slab program advances every lane by at most
     ``slab_iters`` Gauss-Newton iterations — the full ``num_iters``
     budget (e.g. max_count=2500) is spread over bounded device programs
-    by the host drive loop, so no single program can trip the TPU
-    runtime's long-program watchdog."""
+    by the host drive loop, which reads convergence between them."""
     from libstacker_tpu.ops import ecc as ecc_ops
 
     n = burst.shape[0]
@@ -242,11 +241,11 @@ def test_sharded_slab_program_is_bounded(burst):
     )
     (tmpl_f,) = prep(jnp.asarray(burst), ref_grey)
     carry = pmesh._sharded_carry_init(
-        n, MotionType.Translation, "forward", 1e-12, None, None
+        n, MotionType.Translation, False, 1e-12, None, None
     )
     slab = pmesh._ecc_slab_program(
-        mesh, MotionType.Translation, 2500, 1e-12, 3, False, 7,
-        "forward", False,
+        mesh, MotionType.Translation, 2500, 1e-12, 3, False, "forward",
+        False, n,
     )
     out = slab(tmpl_f, image_f, gx, gy, *carry)
     it = np.asarray(out[3])
@@ -255,7 +254,7 @@ def test_sharded_slab_program_is_bounded(burst):
     # lane can hit exact convergence earlier)
     assert it.max() == 3 and (it == 3).sum() >= n - 1, it
     # a second invocation resumes where the first stopped
-    out2 = slab(tmpl_f, image_f, gx, gy, *out[:-2])
+    out2 = slab(tmpl_f, image_f, gx, gy, *out[:-1])
     assert np.asarray(out2[3]).max() == 6
 
 
@@ -310,25 +309,21 @@ def test_sharded_keypoint_stack_matches_unsharded():
     assert d.mean() < 1e-4, d.mean()
 
 
-def test_pallas_warp_accum_under_shard_map(monkeypatch):
-    """The fused Pallas warp+accumulate kernel runs INSIDE shard_map
-    (interpret mode — the VERDICT-r2 'Pallas path exercised under
-    shard_map' smoke): frames sharded over 'data', per-shard fused
-    kernel, psum; parity vs the dense unsharded masked sum."""
+def test_warp_accum_under_shard_map():
+    """warp_accumulate_rgb runs INSIDE shard_map: frames sharded over
+    'data', per-shard frame-by-frame accumulation, psum; parity vs the
+    dense unsharded masked sum (a dropped lane included)."""
     import cv2
     from functools import partial
     from jax import shard_map
     from jax.sharding import PartitionSpec as P
 
-    from libstacker_tpu.ops import warp_accum_pallas, warp_batch
-
-    monkeypatch.setenv("LIBSTACKER_FORCE_PALLAS", "1")
-    monkeypatch.setenv("LIBSTACKER_WARP_INTERPRET", "1")
+    from libstacker_tpu.ops import warp_batch
 
     rng = np.random.default_rng(53)  # local rng (conftest stream note)
     frames = np.stack([
         cv2.GaussianBlur(
-            rng.random((192, 512, 3)).astype(np.float32), (0, 0), 1.5
+            rng.random((96, 136, 3)).astype(np.float32), (0, 0), 1.5
         )
         for _ in range(8)
     ])
@@ -339,46 +334,28 @@ def test_pallas_warp_accum_under_shard_map(monkeypatch):
     oks = np.ones(8, bool)
     oks[5] = False
 
-    calls = []
-    real = warp_accum_pallas.warp_accum_rgb_pallas
-
-    def counted(*a, **kw):
-        calls.append(kw.get("interpret"))
-        return real(*a, **kw)
-
-    monkeypatch.setattr(
-        warp_accum_pallas, "warp_accum_rgb_pallas", counted
-    )
-
     m = pmesh.make_mesh(data=4, spatial=2)
 
     @partial(
         shard_map, mesh=m,
         in_specs=(P("data"), P("data"), P("data")),
         out_specs=P(),
-        check_vma=False,  # pallas_call inside shard_map (like mesh.py)
+        check_vma=False,
     )
     def sharded_accum(f, mt, ok):
-        part = warp_batch.warp_accumulate_rgb(
-            f, mt, ok, perspective=False, pallas_k=3
-        )
+        part = warp_batch.warp_accumulate_rgb(f, mt, ok, perspective=False)
         return jax.lax.psum(part, "data")
 
     got = np.asarray(sharded_accum(
         jnp.asarray(frames), jnp.asarray(mats), jnp.asarray(oks)
     ))
-    assert calls and all(c for c in calls), "fused kernel not engaged"
-
     warped = warp_batch.warp_frames_batch(
         jnp.asarray(frames), jnp.asarray(mats), perspective=False,
-        allow_pallas=False,
     )
     want = np.asarray(jnp.sum(
         warped * jnp.asarray(oks, jnp.float32)[:, None, None, None], axis=0
     ))
-    d = np.abs(got - want)
-    assert (d > 1e-5).mean() <= 1e-3, (d > 1e-5).mean()
-    assert d.max() < 0.02, d.max()
+    np.testing.assert_allclose(got, want, atol=1e-5)
 
 
 def test_sharded_sigma_clip_stack():

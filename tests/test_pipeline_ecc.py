@@ -87,10 +87,29 @@ def test_ecc_match_scaled(rng):
 
 
 def test_ecc_match_ic_solver(monkeypatch):
-    """solver='ic' through the fused kernel (interpret mode) produces
-    the same stack as the default forward solver — pipeline-level check
-    of the inverse-compositional mode plumbing (params -> driver ->
-    kernel)."""
+    """The inverse-compositional solver was removed: solver='ic' and
+    LIBSTACKER_ECC_MODE=ic raise InvalidParamsError before any work."""
+    from libstacker_tpu.errors import InvalidParamsError
+
+    frames = np.zeros((2, 32, 48, 3), np.uint8)
+    params_ic = EccMatchParameters(
+        motion_type=MotionType.Translation, max_count=5, epsilon=1e-4,
+        solver="ic",
+    )
+    with pytest.raises(InvalidParamsError, match="inverse-compositional"):
+        ecc_match_arrays(frames, params_ic)
+    monkeypatch.setenv("LIBSTACKER_ECC_MODE", "ic")
+    params = EccMatchParameters(
+        motion_type=MotionType.Translation, max_count=5, epsilon=1e-4,
+    )
+    with pytest.raises(InvalidParamsError, match="inverse-compositional"):
+        ecc_match_arrays(frames, params)
+
+
+def test_ecc_match_lazy_solver(ecc_kernel_interpret):
+    """solver='lazy' through the fused kernel (interpret mode) produces
+    the same stack as the forward solver on the XLA path — the
+    params -> driver -> kernel plumbing of the lazy-Hessian mode."""
     rng = np.random.default_rng(71)  # local rng: the session fixture's
     # draws are order-dependent (see tests/conftest.py note)
     frames = _make_burst(rng, n=3, h=192, w=512)
@@ -98,15 +117,13 @@ def test_ecc_match_ic_solver(monkeypatch):
         motion_type=MotionType.Translation, max_count=50, epsilon=1e-4,
         gauss_filt_size=5,
     )
-    want = ecc_match_arrays(frames, params_fwd)
-    monkeypatch.setenv("LIBSTACKER_FORCE_PALLAS", "1")
-    monkeypatch.setenv("LIBSTACKER_ECC_INTERPRET", "1")
-    monkeypatch.setenv("LIBSTACKER_WARP_INTERPRET", "1")
-    params_ic = EccMatchParameters(
+    with ecc_kernel_interpret.off():
+        want = ecc_match_arrays(frames, params_fwd)
+    params_lazy = EccMatchParameters(
         motion_type=MotionType.Translation, max_count=50, epsilon=1e-4,
-        gauss_filt_size=5, solver="ic",
+        gauss_filt_size=5, solver="lazy",
     )
-    got = ecc_match_arrays(frames, params_ic)
+    got = ecc_match_arrays(frames, params_lazy)
     diff = np.abs(got[8:-8, 8:-8] - want[8:-8, 8:-8])
     assert diff.max() < 0.02, f"max diff {diff.max()}"
 

@@ -5,7 +5,7 @@ whole-burst DENSE pipelines (no mesh), so these tests pin the full
 composition stream+shard == reference semantics.  The reference sells
 "memory efficient streaming processing" (src/lib.rs:106) and hides its
 parallelism inside the API (src/lib.rs:188, 746); composing both is the
-TPU-native equivalent."""
+device equivalent."""
 
 import cv2
 import jax
